@@ -11,7 +11,7 @@ test: native
 	python -m pytest tests/ -q
 
 test-fast: native
-	python -m pytest tests/test_golden.py tests/test_pallas.py -q
+	python -m pytest tests/test_golden.py tests/test_triton.py -q
 
 bench:
 	python bench.py

@@ -1,11 +1,11 @@
 """Per-(column, level) guard-activity analysis for the dynamic fast paths.
 
 The dynamic skips (`scheme.inert_skip`, the 5.2.1 no-overshoot cond) fire
-only when a guard is False for EVERY column in the batch — the Pallas
-kernel's (SB, 128) tile. The benchmark expansion tiles the 100 snapshot
-columns cyclically (ref: expand_mod.F90:237-334), so every tile mixes all
-100 distinct columns and the skip rate degenerates to the whole-snapshot
-rate. This probe measures, per guard:
+only when a guard is False for EVERY column in the batch — the fused
+kernel's block of BLOCK columns. The benchmark expansion tiles the 100
+snapshot columns cyclically (ref: expand_mod.F90:237-334), so every block
+mixes up to BLOCK distinct columns and the skip rate approaches the
+whole-snapshot rate. This probe measures, per guard:
 
   - active fraction over (level, column) work units   (the best any
     per-column schedule could reach)
@@ -52,7 +52,7 @@ def pyscan(f, init, xs, **kw):
 
 
 def tile_rates(a: np.ndarray, inp, params, ngptot: int = 163840,
-               tile: int = 32 * 128, nshards: int = 1) -> dict:
+               tile: int = 128, nshards: int = 1) -> dict:
     """Predicted per-tile activity rate (fraction of (tile, level) units
     where ANY column in the tile is active — the rate the kernel's lax.cond
     actually fires at) for each column layout, from the recorded
@@ -73,7 +73,7 @@ def tile_rates(a: np.ndarray, inp, params, ngptot: int = 163840,
                     inp.ptsphy, params.ydecldp.rlmin, nshards=nshards,
                 )
             src = np.repeat(perm, counts)
-        # edge-pad to whole tiles exactly like the packer
+        # edge-pad to whole tiles exactly like the kernel wrapper
         target = -(-ngptot // tile) * tile
         src = np.concatenate([src, np.full(target - ngptot, src[-1])])
         ntile = target // tile
@@ -82,18 +82,17 @@ def tile_rates(a: np.ndarray, inp, params, ngptot: int = 163840,
     return out
 
 
-def record_masks(inp, params, cache_dir="/tmp"):
+def record_masks(inp, params, cache_dir=None):
     """Concrete per-(level, source-column) guard masks from one eager fp64
     scan at 100 columns; cached to disk. The masks depend only on the
     snapshot + wired scheme (not on any layout parameter), so the cache is
     keyed on the scheme source and the active skip config — editing
-    scheme.py or setting CLOUDSC_SCHEME_SKIP invalidates it."""
+    scheme.py invalidates it."""
     import hashlib
     import inspect
 
     key = hashlib.sha256()
     key.update(inspect.getsource(scheme).encode())
-    key.update(os.environ.get("CLOUDSC_SCHEME_SKIP", "").encode())
     key.update(str(inp.ptsphy).encode())
     cache = os.path.join(
         cache_dir, f"cloudsc_activity_masks_{key.hexdigest()[:16]}.npz"
@@ -143,8 +142,8 @@ def main():
     import argparse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--sb", type=int, nargs="+", default=[32],
-                    help="sublane tile heights to model (tile = SB*128 cols)")
+    ap.add_argument("--block", type=int, nargs="+", default=[128],
+                    help="kernel column-block widths to model")
     ap.add_argument("--nshards", type=int, default=1,
                     help="model the shard-dealt sorted layout for N shards")
     args = ap.parse_args()
@@ -167,10 +166,11 @@ def main():
               f"median {p50:.2f}  p75 {p75:.2f}  "
               f"max {per_col.max():.2f}  ncols-fully-inert "
               f"{(per_col == 0).sum()}")
-        for sb in args.sb:
-            rates = tile_rates(a, inp, params, tile=sb * 128,
+        for block in args.block:
+            rates = tile_rates(a, inp, params, tile=block,
                                nshards=args.nshards)
-            print(f"{'':>8} predicted (SB={sb})-tile fire rate at 160K cols: "
+            print(f"{'':>8} predicted {block}-column block fire rate at "
+                  f"160K cols: "
                   + "  ".join(f"{k} {100 * v:.1f}%" for k, v in rates.items()))
 
 

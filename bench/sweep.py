@@ -8,7 +8,8 @@ formats, and emits a summary table + results.json.
 
 Usage:
     python bench/sweep.py [--ngptot 16384 65536 163840] [--nproma 64 128]
-        [--kernel pallas scan] [--iterations 3] [--out results.json]
+        [--kernel triton scan] [--iterations 3] [--out results.json]
+    python bench/sweep.py --weak-scaling 1 2 4   # GPUs per mesh
 """
 
 from __future__ import annotations
@@ -70,45 +71,28 @@ def run_case(ngptot: int, nproma: int, kernel: str, iterations: int,
     return rec
 
 
-def run_weak_scaling(device_counts, cpu: bool, out_path: str) -> int:
-    """Weak-scaling efficiency over mesh sizes (BASELINE.md: >=90% per-chip
-    at N chips vs 1). Each point runs bench.py with CLOUDSC_BENCH_MESH=1 and
-    the workload scaled with the device count (bench.py does that itself),
-    reporting cols/s PER CHIP. With --cpu the mesh is virtual
-    (xla_force_host_platform_device_count) — the rehearsal mode for this
-    single-chip environment; on a pod slice, run without --cpu.
+def run_weak_scaling(device_counts, out_path: str) -> int:
+    """Weak-scaling efficiency over mesh sizes (per-GPU cols/s at N GPUs vs
+    the smallest mesh). Each point runs bench.py with CLOUDSC_BENCH_MESH=1 on
+    the first N GPUs (CUDA_VISIBLE_DEVICES) and the workload scaled with the
+    device count (bench.py does that itself), reporting cols/s PER GPU.
     """
     results = []
     for ndev in device_counts:
-        env = dict(os.environ, CLOUDSC_BENCH_MESH="1")
-        if cpu:
-            env["CLOUDSC_BENCH_CPU"] = "1"
-            env["XLA_FLAGS"] = (
-                env.get("XLA_FLAGS", "")
-                + f" --xla_force_host_platform_device_count={ndev}"
-            ).strip()
+        env = dict(os.environ, CLOUDSC_BENCH_MESH="1",
+                   CUDA_VISIBLE_DEVICES=",".join(map(str, range(ndev))))
         proc = subprocess.run(
             [sys.executable, str(ROOT / "bench.py")],
             capture_output=True, text=True, cwd=ROOT, timeout=1800, env=env,
         )
         rec = dict(ndev=ndev, rc=proc.returncode)
-        if cpu:
-            # label the data itself, not just the stdout note: these numbers
-            # must never be read as ICI efficiency — N virtual devices
-            # time-slice ONE physical core, so per-chip throughput falls
-            # ~1/N by construction
-            rec["rehearsal"] = True
-            rec["rehearsal_reason"] = (
-                "virtual CPU mesh: all devices share one host core; "
-                "validates the sharded path, NOT an efficiency measurement"
-            )
         for line in proc.stdout.splitlines():
             if line.startswith("{"):
                 rec.update(json.loads(line))
         if proc.returncode != 0:
             rec["stderr_tail"] = proc.stderr[-500:]
         results.append(rec)
-        print(f"  ndev={ndev}: {rec.get('value', 'FAILED')} cols/s/chip",
+        print(f"  ndev={ndev}: {rec.get('value', 'FAILED')} cols/s/GPU",
               flush=True)
 
     # the efficiency base is strictly the SMALLEST mesh size; if that run
@@ -116,36 +100,16 @@ def run_weak_scaling(device_counts, cpu: bool, out_path: str) -> int:
     # larger mesh (which already carries scaling losses)
     smallest = min(results, key=lambda r: r["ndev"])
     base = smallest.get("value") if smallest["rc"] == 0 else None
-    if cpu and base:
-        # serialization-adjusted efficiency: N virtual devices share one
-        # core, so the IDEAL wall time is N x the 1-device time; the ratio
-        # N*value_N/value_1 then isolates sharding/partitioning overhead
-        # from core contention (the raw per-chip ratio conflates both)
-        for r in results:
-            v = r.get("value")
-            r["serialized_efficiency"] = (
-                round(r["ndev"] * v / base, 4) if v else None
-            )
-    hdr = f"{'ndev':>5} {'cols/s/chip':>14} {'efficiency':>11}"
-    if cpu:
-        print("\n[REHEARSAL] virtual CPU mesh — efficiencies below measure "
-              "host-core time-slicing, not ICI scaling")
+    hdr = f"{'ndev':>5} {'cols/s/GPU':>14} {'efficiency':>11}"
     print("\n" + hdr + "\n" + "-" * len(hdr))
     for r in results:
         v = r.get("value")
         r["efficiency"] = round(v / base, 4) if (v and base) else None
         eff_s = f"{v / base:>10.1%}" if (v and base) else f"{'n/a':>10}"
-        ser = r.get("serialized_efficiency")
-        ser_s = f"  (serialization-adjusted {ser:.1%})" if ser else ""
-        print(f"{r['ndev']:>5} {v if v else -1:>14} {eff_s}{ser_s}")
+        print(f"{r['ndev']:>5} {v if v else -1:>14} {eff_s}")
     if base is None:
         print(f"\nWARNING: ndev={smallest['ndev']} baseline run failed; "
               "efficiencies not computed")
-    if cpu:
-        print("\nNOTE: --cpu mesh devices share one host's cores; this run "
-              "validates the sharded path end-to-end, it is NOT an "
-              "efficiency measurement (the >=90% BASELINE.md bar applies to "
-              "a real pod slice, where each mesh device is its own chip).")
     out = Path(out_path)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(results, indent=2))
@@ -154,25 +118,22 @@ def run_weak_scaling(device_counts, cpu: bool, out_path: str) -> int:
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="CLOUDSC-TPU benchmark sweep")
+    p = argparse.ArgumentParser(description="CLOUDSC benchmark sweep")
     p.add_argument("--ngptot", type=int, nargs="+",
                    default=[16384, 65536, 163840])
     p.add_argument("--nproma", type=int, nargs="+", default=[128])
-    p.add_argument("--kernel", nargs="+", default=["pallas", "scan"])
+    p.add_argument("--kernel", nargs="+", default=["triton", "scan"])
     p.add_argument("--iterations", type=int, default=3)
     p.add_argument("--validate", action="store_true")
     p.add_argument("--out", default="bench/results.json")
     p.add_argument("--weak-scaling", type=int, nargs="+", metavar="NDEV",
                    default=None,
                    help="weak-scaling mode over these mesh sizes "
-                        "(e.g. --weak-scaling 1 2 4 8)")
-    p.add_argument("--cpu", action="store_true",
-                   help="weak-scaling on a virtual CPU mesh (single-chip "
-                        "rehearsal; omit on a real pod slice)")
+                        "(e.g. --weak-scaling 1 2 4)")
     a = p.parse_args(argv)
 
     if a.weak_scaling:
-        return run_weak_scaling(a.weak_scaling, a.cpu, a.out)
+        return run_weak_scaling(a.weak_scaling, a.out)
 
     results = []
     for ng, npr, kern in itertools.product(a.ngptot, a.nproma, a.kernel):

@@ -7,8 +7,8 @@ exceeds the file size, every rank/host loads the *same* 100 columns (ref:
 expand_mod.F90:37-43, README.md:167-175) — which keeps multi-host results bitwise
 comparable to single-host runs and is preserved here as the multi-chip test fixture.
 
-Unlike the reference we do not reshape into (NPROMA, ..., NBLOCKS) blocks: on TPU
-the column axis stays flat and XLA/Pallas tiles it onto the 128-wide lane dimension.
+Unlike the reference we do not reshape into (NPROMA, ..., NBLOCKS) blocks: the
+column axis stays flat and contiguous; XLA and the fused kernel block it.
 """
 
 from __future__ import annotations
@@ -122,7 +122,7 @@ def activity_perm(pclv: np.ndarray, tcld: np.ndarray, ptsphy: float,
     (plain source order leaves tiles mixing adjacent snapshot columns).
 
     `nshards` > 1 (column-mesh runs: the layout is split contiguously over
-    the devices by shard_packed) deals the sorted sources round-robin
+    the devices by shard_fields) deals the sorted sources round-robin
     across the shards so every device receives a similar activity mix —
     a fully contiguous sort would hand one device all the busy columns and
     make it the SPMD straggler. Within a shard, stride-nshards neighbors
@@ -141,7 +141,7 @@ def activity_perm(pclv: np.ndarray, tcld: np.ndarray, ptsphy: float,
 
 
 def pad_columns(field: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:
-    """Zero-pad the trailing column axis to a multiple (TPU lane alignment).
+    """Zero-pad the trailing column axis to a multiple.
 
     Mirrors the reference's zero-padded tail block (ref: expand_mod.F90:264-265);
     returns (padded, original_ncol).

@@ -1,10 +1,13 @@
 """Input/reference I/O facade.
 
-Loads the CLOUDSC input state either from an HDF5 mirror (input.h5) or directly
-from the raw Serialbox archive (data/*.dat), mirroring the reference's compile-time
+Loads the CLOUDSC input state from a NumPy .npz snapshot (the default, read
+with NumPy alone), an HDF5 mirror (input.h5, needs h5py) or directly from the
+raw Serialbox archive (data/*.dat), mirroring the reference's compile-time
 HDF5/Serialbox switch at runtime (ref: src/common/module/file_io_mod.F90:49-72).
-Arrays are returned in the HDF5-mirror layout: (lev, col), (nclv, lev, col),
-(lev+1, col) — level-major with columns on the trailing (TPU lane) axis.
+The .npz and .h5 snapshots hold the same arrays under the same names
+(tools/h52npz.py). Arrays are returned in the HDF5-mirror layout: (lev, col),
+(nclv, lev, col), (lev+1, col) — level-major with columns on the trailing
+axis, the contiguous one.
 
 Reference outputs come from config-files/reference.h5
 (dataset list: ref src/common/module/cloudsc_global_state_mod.F90:288-321).
@@ -12,6 +15,7 @@ Reference outputs come from config-files/reference.h5
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from pathlib import Path
@@ -47,32 +51,35 @@ REFERENCE_FIELDS = [
 ]
 
 
-# The repo ships the 100-column snapshot as compressed HDF5 mirrors (the
-# reference commits its .dat archive the same way) so tests/CI run on a clean
-# checkout with no external data dependency.
+# The repo ships the 100-column snapshot as .npz (and as the HDF5 mirrors it
+# was converted from; the reference commits its .dat archive the same way) so
+# tests/CI run on a clean checkout with no external data dependency.
 _REPO_DATA = Path(__file__).resolve().parents[2] / "data"
 
 
 def default_input_path() -> str:
-    """Input archive resolution: $CLOUDSC_INPUT > reference checkout > repo copy."""
-    env = os.environ.get("CLOUDSC_INPUT")
-    if env:
-        return env
-    ref = Path("/root/reference/data")
-    if ref.is_dir():
-        return str(ref)
-    return str(_REPO_DATA / "input.h5")
+    """Input archive resolution: $CLOUDSC_INPUT > the repo's snapshot."""
+    return os.environ.get("CLOUDSC_INPUT") or str(_REPO_DATA / "input.npz")
 
 
 def default_reference_path() -> str:
-    """Golden-output resolution: $CLOUDSC_REFERENCE > reference checkout > repo copy."""
-    env = os.environ.get("CLOUDSC_REFERENCE")
-    if env:
-        return env
-    ref = Path("/root/reference/config-files/reference.h5")
-    if ref.is_file():
-        return str(ref)
-    return str(_REPO_DATA / "reference.h5")
+    """Golden-output resolution: $CLOUDSC_REFERENCE > the repo's snapshot."""
+    return (os.environ.get("CLOUDSC_REFERENCE")
+            or str(_REPO_DATA / "reference.npz"))
+
+
+@contextlib.contextmanager
+def _snapshot(path: str | Path):
+    """name -> array mapping of a .npz or .h5 snapshot file. Only the .h5
+    mirrors need h5py, which is imported here and nowhere on the main path."""
+    if Path(path).suffix == ".h5":
+        import h5py
+
+        with h5py.File(path, "r") as f:
+            yield f
+    else:
+        with np.load(path) as z:
+            yield z
 
 
 @dataclasses.dataclass
@@ -96,7 +103,7 @@ class InputData:
 
 def _load_raw(path: str | Path,
               col_slice: tuple[int, int] | None = None) -> tuple[dict, dict]:
-    """Load (fields, scalars) from either a .h5 file or a Serialbox directory.
+    """Load (fields, scalars) from a .npz/.h5 file or a Serialbox directory.
 
     `col_slice=(start, count)` restricts per-column fields to that column
     range via true hyperslab reads — only the rank's slice ever leaves the
@@ -104,10 +111,9 @@ def _load_raw(path: str | Path,
     path = Path(path)
     if path.is_dir():
         return load_input_archive(path, "input", col_slice=col_slice)
-    import h5py
 
     fields, scalars = {}, {}
-    with h5py.File(path, "r") as f:
+    with _snapshot(path) as f:
         for k in f.keys():
             if f[k].shape == (1,):
                 v = f[k][0]
@@ -132,9 +138,7 @@ def _peek_klon(path: str | Path) -> int:
         from .serialbox import SerialboxArchive
 
         return int(SerialboxArchive(path, "input").global_scalars()["KLON"])
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with _snapshot(path) as f:
         return int(f["KLON"][0])
 
 
@@ -188,7 +192,8 @@ def load_input(path: str | Path, ngptot: int | None = None,
 def load_reference(path: str | Path, ngptot: int | None = None,
                    ngptotg: int | None = None, rank: int = 0,
                    nranks: int = 1) -> dict:
-    """Load the golden outputs (reference.h5), optionally expanded to ngptot.
+    """Load the golden outputs (reference.npz or .h5), optionally expanded
+    to ngptot.
 
     Multi-host runs pass (rank, nranks, ngptotg): the reference columns are
     sliced with the SAME get_offsets rule as the input, so each rank validates
@@ -196,12 +201,10 @@ def load_reference(path: str | Path, ngptot: int | None = None,
     the golden through the identical LOAD_AND_EXPAND path,
     ref: cloudsc_global_state_mod.F90:288-321).
     """
-    import h5py
-
     from .expand import get_offsets
 
     out = {}
-    with h5py.File(path, "r") as f:
+    with _snapshot(path) as f:
         for name in REFERENCE_FIELDS:
             ds = f[name]
             if ngptot is None:
@@ -221,7 +224,7 @@ def load_reference(path: str | Path, ngptot: int | None = None,
 def write_h5(path: str | Path, fields: dict, scalars: dict | None = None) -> None:
     """Snapshot fields (+ scalars as shape-(1,) datasets) to HDF5.
 
-    The TPU-side equivalent of the reference's Serialbox write hooks used to
+    This program's equivalent of the reference's Serialbox write hooks used to
     regenerate goldens (ref: src/prototype1/support/serialize_mod.F90:62-130,
     serialbox2hdf5/serialbox2hdf5.py:41-48).
     """

@@ -2,7 +2,7 @@
 
 The reference's loaders/validators are native C (ref: src/cloudsc_c/cloudsc/
 load_state.c, cloudsc_validate.c); this module is their equivalent around the
-TPU compute path. The shared library is built lazily with g++ on first use and
+device compute path. The shared library is built lazily with g++ on first use and
 cached next to the source; every entry point has a NumPy fallback so the
 framework works without a compiler (CLOUDSC_NATIVE=0 forces the fallback).
 """
@@ -90,15 +90,6 @@ def _bind(lib):
         fn = getattr(lib, f"cs_field_stats_{suffix}")
         fn.argtypes = [cptr, cptr, i64, i32, pd]
         fn.restype = None
-    pd64 = ctypes.POINTER(ctypes.c_double)
-    for name in ("cs_pack_expand_f32", "cs_pack_expand_grouped_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = [
-            ctypes.POINTER(pd64), ctypes.POINTER(ctypes.c_int64),
-            i64, i64, i64, i64, i64,
-            ctypes.POINTER(ctypes.c_float), i32,
-        ]
-        fn.restype = None
     lib.cs_hardware_threads.restype = ctypes.c_int
 
 
@@ -152,41 +143,3 @@ def field_stats_native(field: np.ndarray, ref: np.ndarray, nthreads: int = 0):
     fn(field.ctypes.data_as(ptr), ref.ctypes.data_as(ptr),
        field.size, nthreads, out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
     return tuple(out)
-
-
-def pack_expand_native(srcs: list, ncol: int, target: int,
-                       nlev_rows: int, nthreads: int = 0,
-                       grouped: bool = False):
-    """Fused expand+cast+pack: raw (nlev_r, klon) fp64 fields -> one fp32
-    buffer (nlev_rows, len(srcs), target), expanded to ncol columns
-    (cyclically, or with each source column's copies contiguous when
-    grouped=True — a column permutation of the cyclic layout, see
-    data.expand.group_inverse) and edge-padded to target. Level index
-    clamps to each source's last row (the lps pad-row / half-level
-    convention). None if unavailable.
-
-    One write of the packed bytes replaces the expand->cast->pack numpy
-    pipeline (the reference does its expansion natively too,
-    ref: expand_mod.F90:173-334, load_state.c)."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    arrs = []
-    for s in srcs:
-        a = np.ascontiguousarray(np.atleast_2d(np.asarray(s, dtype=np.float64)))
-        arrs.append(a)
-    klon = arrs[0].shape[-1]
-    if any(a.shape[-1] != klon for a in arrs):
-        return None
-    nrows = len(arrs)
-    pd64 = ctypes.POINTER(ctypes.c_double)
-    ptrs = (pd64 * nrows)(*[a.ctypes.data_as(pd64) for a in arrs])
-    levs = np.asarray([a.shape[0] for a in arrs], dtype=np.int64)
-    dst = np.empty((nlev_rows, nrows, target), dtype=np.float32)
-    fn = lib.cs_pack_expand_grouped_f32 if grouped else lib.cs_pack_expand_f32
-    fn(
-        ptrs, levs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        nrows, nlev_rows, klon, ncol, target,
-        dst.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), nthreads,
-    )
-    return dst

@@ -1,10 +1,10 @@
-// Native data-path kernels for the CLOUDSC TPU framework.
+// Native host data-path kernels for the CLOUDSC JAX framework.
 //
 // The reference implements its host-side data path natively: the OpenMP-
 // parallel column expansion (ref: src/common/module/expand_mod.F90:173-334,
 // C twin src/cloudsc_c/cloudsc/load_state.c) and the validation statistics
-// (ref: src/cloudsc_c/cloudsc/cloudsc_validate.c:20-153). On TPU the compute
-// path is XLA/Pallas, but these host-side stages sit on the critical path of
+// (ref: src/cloudsc_c/cloudsc/cloudsc_validate.c:20-153). The compute path
+// runs on the device, but these host-side stages sit on the critical path of
 // every benchmark run (tiling 100 file columns out to ~10^5..10^6 benchmark
 // columns touches gigabytes) — so they are native here too, threaded with
 // std::thread (the OpenMP analogue), exposed through a C ABI for ctypes.
@@ -119,100 +119,9 @@ void field_stats(const T* field, const T* ref, int64_t n, int nthreads,
   out5[0] = mn; out5[1] = mx; out5[2] = me; out5[3] = es; out5[4] = rs;
 }
 
-// Fused expand + cast + pack: one pass from the raw (nlev_r, klon) fp64
-// snapshot fields straight into a packed fp32 buffer laid out
-// (nlev_rows, nrows, target) — the cyclic column expansion
-// (ref: expand_mod.F90:237-334), the SINGLE-precision cast
-// (ref: parkind1.F90:40-44) and the FIELD-API-style packed buffer build
-// (ref: cloudsc_field_state_mod.F90, README.md:324-330) in one write.
-// Separate numpy stages write the expanded fp64 dict + cast + pack
-// (~13 GB of traffic at 160K columns); this writes the 2.7 GB pack once.
-//
-//   dst[k, r, j] = (float) srcs[r][ min(k, levs[r]-1)*klon + col(j) ]
-//   col(j) = (j < ncol ? j : ncol-1) % klon        (edge-padded tail)
-void pack_expand_f32(const double** srcs, const int64_t* levs, int64_t nrows,
-                     int64_t nlev_rows, int64_t klon, int64_t ncol,
-                     int64_t target, float* dst, int nthreads) {
-  int64_t planes = nlev_rows * nrows;
-  nthreads = std::min<int64_t>(resolve_threads(nthreads), std::max<int64_t>(planes, 1));
-  parallel_for_threads(static_cast<int>(nthreads), [=](int t) {
-    std::vector<float> period(klon);
-    int64_t lo = planes * t / nthreads;
-    int64_t hi = planes * (t + 1) / nthreads;
-    for (int64_t p = lo; p < hi; ++p) {
-      int64_t k = p / nrows, r = p % nrows;
-      int64_t lev = std::min(k, levs[r] - 1);
-      const double* s = srcs[r] + lev * klon;
-      float* d = dst + p * target;
-      for (int64_t j = 0; j < klon; ++j)
-        period[j] = static_cast<float>(s[j]);
-      int64_t full = ncol / klon;
-      for (int64_t rep = 0; rep < full; ++rep)
-        std::memcpy(d + rep * klon, period.data(), sizeof(float) * klon);
-      int64_t tail = ncol - full * klon;
-      if (tail)
-        std::memcpy(d + full * klon, period.data(), sizeof(float) * tail);
-      float edge = period[(ncol - 1) % klon];
-      for (int64_t j = ncol; j < target; ++j) d[j] = edge;
-    }
-  });
-}
-
-// Grouped-layout variant of pack_expand_f32: instead of tiling the klon
-// source columns cyclically (dst col j <- src col j%klon), all copies of a
-// source column are written contiguously -- group g occupies
-// [off_g, off_g + count_g) with count_g = ceil((ncol - g) / klon), the
-// exact multiplicity of source g in the cyclic expansion, so the grouped
-// buffer is a column permutation of the cyclic one. Grouping makes the
-// Pallas kernel's (sublanes, 128) column tiles homogeneous in the 100
-// distinct snapshot columns, which lets the value-exact per-tile dynamic
-// skips (scheme.inert_skip) fire at per-column rather than whole-batch
-// granularity (docs/PERFORMANCE.md "activity-grouped column layout").
-void pack_expand_grouped_f32(const double** srcs, const int64_t* levs,
-                             int64_t nrows, int64_t nlev_rows, int64_t klon,
-                             int64_t ncol, int64_t target, float* dst,
-                             int nthreads) {
-  int64_t planes = nlev_rows * nrows;
-  nthreads = std::min<int64_t>(resolve_threads(nthreads), std::max<int64_t>(planes, 1));
-  parallel_for_threads(static_cast<int>(nthreads), [=](int t) {
-    int64_t lo = planes * t / nthreads;
-    int64_t hi = planes * (t + 1) / nthreads;
-    for (int64_t p = lo; p < hi; ++p) {
-      int64_t k = p / nrows, r = p % nrows;
-      int64_t lev = std::min(k, levs[r] - 1);
-      const double* s = srcs[r] + lev * klon;
-      float* d = dst + p * target;
-      int64_t off = 0;
-      for (int64_t g = 0; g < klon && off < ncol; ++g) {
-        int64_t cnt = (ncol - g + klon - 1) / klon;
-        std::fill(d + off, d + off + cnt, static_cast<float>(s[g]));
-        off += cnt;
-      }
-      float edge = static_cast<float>(s[std::min(klon, ncol) - 1]);
-      for (int64_t j = ncol; j < target; ++j) d[j] = edge;
-    }
-  });
-}
-
 }  // namespace
 
 extern "C" {
-
-void cs_pack_expand_f32(const double** srcs, const int64_t* levs,
-                        int64_t nrows, int64_t nlev_rows, int64_t klon,
-                        int64_t ncol, int64_t target, float* dst,
-                        int nthreads) {
-  pack_expand_f32(srcs, levs, nrows, nlev_rows, klon, ncol, target, dst,
-                  nthreads);
-}
-
-void cs_pack_expand_grouped_f32(const double** srcs, const int64_t* levs,
-                                int64_t nrows, int64_t nlev_rows, int64_t klon,
-                                int64_t ncol, int64_t target, float* dst,
-                                int nthreads) {
-  pack_expand_grouped_f32(srcs, levs, nrows, nlev_rows, klon, ncol, target,
-                          dst, nthreads);
-}
 
 void cs_expand_f64(const double* src, double* dst, int64_t nrows,
                    int64_t klon, int64_t ngptot, int nthreads) {

@@ -7,7 +7,7 @@ The reference loads every parameter from the input file by name at runtime:
   TEPHLI  linearized physics     (ref: src/common/module/yoephli.F90:63-97)
 
 Parameters are stored as plain Python scalars so they become XLA compile-time
-constants under jit (the TPU analogue of the reference's constant-memory copies,
+constants under jit (this program's analogue of the reference's constant-memory copies,
 ref: src/common/module/yomcst.cuf.F90).
 """
 

@@ -1,7 +1,8 @@
-"""The CLOUDSC prognostic cloud microphysics scheme, TPU-native formulation.
+"""The CLOUDSC prognostic cloud microphysics scheme as an XLA program.
 
-This is the XLA execution engine for the scheme: the physics itself lives in
-`scheme.py` (shared with the fused Pallas TPU kernel). The behavioral spec is
+This is the XLA execution engine for the scheme and the oracle of the fused
+GPU kernel (`kernels.triton_cloudsc`): the physics itself lives in
+`scheme.py`, which both share. The behavioral spec is
 src/cloudsc_fortran/cloudsc.F90 in the reference (ref: line numbers point
 there). Structure, redesigned for XLA:
 
@@ -16,8 +17,8 @@ there). Structure, redesigned for XLA:
   postcompute  section 8 — cumulative half-level flux diagnostics as
                cumsums over levels                             [ref: 2780-2867]
 
-Columns live on the trailing axis — the TPU lane dimension — and are
-embarrassingly parallel, so the scheme vmaps/shards over them trivially.
+Columns live on the trailing, contiguous axis and are embarrassingly
+parallel, so the scheme vmaps/shards over them trivially.
 """
 
 from __future__ import annotations
@@ -56,51 +57,31 @@ class CloudscOutputs(NamedTuple):
     tendency_loc_cld: jax.Array   # (nclv, nlev, ncol) — vapour slot zero
 
 
-def make_inputs(inp, dtype=jnp.float64, host: bool = False,
-                column_order: str = "cyclic", column_perm=None,
-                fold: bool = False, fold_curves: bool = False,
-                fold_newton: bool = False, fold_dep: bool = False,
-                params=None, config=None) -> dict:
+def make_inputs(inp, dtype=jnp.float64, column_order: str = "cyclic",
+                column_perm=None, host: bool = False) -> dict:
     """Convert a loaded InputData into the field dict cloudsc() consumes.
 
-    host=True keeps the arrays in numpy (no device transfer) — used by the
-    packed-storage path so the pack is built host-side and only the packed
-    buffers ever reach HBM (the field dict + pack coexisting on device is
-    what exhausted memory above ~200K columns).
+    host=True keeps the arrays in NumPy, so the caller times (or shards) the
+    transfer to the device itself.
 
     Accepts unexpanded InputData (load_input(expand=False)): fields are
     cast at file width FIRST, then expanded — the cheap order (a fp32
     expand writes half the bytes of expand-then-cast). column_order selects
     the expansion layout (data.expand.expand_field): "grouped" is the
-    activity-grouped permutation the packed Pallas path uses; column_perm
-    (grouped only) pre-permutes the source columns (activity sorting).
-
-    fold=True emits the FOLDED input contract instead (the load-time input
-    transformation of the packed fast path, kernels/pallas_cloudsc
-    _PACK_ROWS_F): the section-1 state accumulation and the always-summed
-    pairs are computed in fp64 at file width, then cast — bitwise the same
-    values the folded pack streams, so a folded scan run is the oracle for
-    the folded kernel. Folded dicts replace pt/pq/pa/pclv/tendency_tmp_*
-    with ztp1_in/zqv_in/za_in/zqx_cld_in and pmfu+pmfd / phrsw+phrlw with
-    pmf / zhr.
-
-    fold_curves / fold_newton (require fold and `params`) additionally emit
-    the folded saturation-curve rows and the 3.4b Newton ZDQS row
-    (physics/satfold.py) — the oracle contract for the CLOUDSC_FOLD_CURVES /
-    CLOUDSC_FOLD_NEWTON kernel layouts; cloudsc() consumes the extra keys
-    through level_init/level_step directly."""
+    activity-grouped permutation the fused kernel's per-block skips prefer;
+    column_perm (grouped only) pre-permutes the source columns (activity
+    sorting)."""
     import numpy as np
 
     from ..data.expand import expand_field
 
     if column_perm is not None and column_order != "grouped":
         raise ValueError("column_perm requires column_order='grouped'")
-    xp = np if host else jnp
     f = inp.fields
     ngptot = inp.ngptot
 
     def cast(name, to=None):
-        a = np.asarray(f[name]) if isinstance(name, str) else name
+        a = np.asarray(f[name])
         to = np.dtype(to if to is not None else np.dtype(dtype))
         if a.dtype != to:
             a = a.astype(to)
@@ -109,68 +90,6 @@ def make_inputs(inp, dtype=jnp.float64, host: bool = False,
                 a = a[..., column_perm]
             a = expand_field(a, ngptot, order=column_order)
         return a if host else jnp.asarray(a)
-
-    if fold:
-        dt64 = float(inp.ptsphy)
-
-        def f64(name):
-            return np.asarray(f[name], np.float64)
-
-        folded = {
-            "ztp1_in": cast(f64("PT") + dt64 * f64("TENDENCY_TMP_T")),
-            "zqv_in": cast(f64("PQ") + dt64 * f64("TENDENCY_TMP_Q")),
-            "za_in": cast(f64("PA") + dt64 * f64("TENDENCY_TMP_A")),
-            "zqx_cld_in": cast(
-                f64("PCLV")[:4] + dt64 * f64("TENDENCY_TMP_CLD")[:4]
-            ),
-            "pmf": cast(f64("PMFU") + f64("PMFD")),
-            "zhr": cast(f64("PHRSW") + f64("PHRLW")),
-        }
-        if fold_curves or fold_newton or fold_dep:
-            from . import scheme as _scheme
-            from . import satfold
-
-            if params is None:
-                raise ValueError("fold_curves/fold_newton/fold_dep need "
-                                 "params")
-            # config matters for fold_dep (IDEPICE selects the deposition
-            # formula); curves/newton are config-independent
-            c64 = _scheme.derived_consts(params, dt64, np.float64, config)
-            ztp1_64 = f64("PT") + dt64 * f64("TENDENCY_TMP_T")
-            curves = satfold.curve_rows(c64, ztp1_64, f64("PAP"))
-            if fold_curves:
-                for name, row in curves.items():
-                    folded[name] = cast(row)
-            if fold_newton:
-                folded["zdqs"] = cast(satfold.newton_zdqs(
-                    c64, ztp1_64, f64("PAP"), f64("PAPH"),
-                    f64("PMFU") + f64("PMFD"), f64("PHRSW") + f64("PHRLW"),
-                    f64("PVERVEL"), curves["zqsmix"],
-                ))
-            if fold_dep:
-                dep = satfold.dep_rows(
-                    c64, ztp1_64,
-                    f64("PQ") + dt64 * f64("TENDENCY_TMP_Q"),
-                    f64("PA") + dt64 * f64("TENDENCY_TMP_A"),
-                    f64("PCLV")[:4] + dt64 * f64("TENDENCY_TMP_CLD")[:4],
-                    f64("PAP"), curves,
-                )
-                folded["zdep0"] = cast(dep["zdep0"])
-                folded["zinfac"] = cast(dep["zinfac"])
-        rest = {
-            k: cast(n) for k, n in (
-                ("pvfl", "PVFL"), ("pvfi", "PVFI"),
-                ("pvervel", "PVERVEL"), ("pap", "PAP"), ("paph", "PAPH"),
-                ("plsm", "PLSM"),
-                ("plu", "PLU"), ("plude", "PLUDE"), ("psnde", "PSNDE"),
-                ("psupsat", "PSUPSAT"),
-                ("plcrit_aer", "PLCRIT_AER"), ("picrit_aer", "PICRIT_AER"),
-                ("pre_ice", "PRE_ICE"), ("pccn", "PCCN"), ("pnice", "PNICE"),
-            )
-        }
-        rest["ldcum"] = cast("LDCUM", to=bool)
-        rest["ktype"] = cast("KTYPE", to="int32")
-        return {**folded, **rest}
 
     return {
         "pt": cast("PT"), "pq": cast("PQ"),
@@ -193,66 +112,13 @@ def make_inputs(inp, dtype=jnp.float64, host: bool = False,
     }
 
 
-# Packed-closure scan layout (CLOUDSC_SCAN_PACKED / scan_pack): canonical
-# row sets. _SCAN_CLOSURE_NAMES mirrors the closure dict literal built in
-# _scan_front() EXACTLY — scan_pack() (pack outside the step) and the
-# in-step stacking must agree on row order for the same SchemeConfig.
-_SCAN_P_ROWS = ("ztp1", "za", "pap")          # rows also read at jk-1
-_SCAN_H_ROWS = ("paph", "pmf", "plu")         # rows also read at jk+1
-_SCAN_CLOSURE_NAMES = (
-    "ztp1", "za", "zaorig", "zqsmix", "zqsliq", "zqsice", "zfoeew",
-    "zfoeewmt", "zfoeeliqt", "zfoealfa", "zli", "zliqfrac", "zicefrac",
-    "zfoeeliq", "zfoeeice", "zfokoop", "pap", "paph", "pmf", "zhr",
-    "pvervel", "plude_in", "plu", "psnde", "psupsat", "tend_t_pre",
-    "tend_q_pre", "pre_ice", "picrit_aer", "pnice", "plcrit_aer", "pccn",
-)
-
-
-def _scan_s_rows(c) -> list:
-    """Row order of the S stack (current-level-only rows + the NCLV species).
-
-    Aerosol rows join only when the coupling reads them (same conditions as
-    the make_x reads) — stacking disabled rows would burn ~90 MB/row of copy
-    + per-level slice bandwidth for nothing."""
-    unread = set()
-    if not c.LAERICESED:
-        unread.add("pre_ice")
-    if not c.LAERICEAUTO:
-        unread.update(("picrit_aer", "pnice"))
-    if not (c.LAERLIQAUTOLSP or c.LAERLIQCOLL):
-        unread.update(("plcrit_aer", "pccn"))
-    return [n for n in _SCAN_CLOSURE_NAMES
-            if n not in _SCAN_P_ROWS + _SCAN_H_ROWS and n not in unread] + \
-           [f"zqx{m}" for m in range(NCLV)]
-
-
-def _scan_stacks(closure: dict, zqx_full, c, nlev: int):
-    """Stack the closure into the three packed-scan buffers — S (current-
-    level-only rows), P (the three rows also read at jk-1), H (the three
-    rows also read at jk+1, padded to nlev+1 rows by duplicating the last
-    row, which reproduces the out-of-range clamp of the unpacked path
-    bitwise)."""
-    s_rows = _scan_s_rows(c)
-    stack_s = jnp.stack(
-        [closure[n] for n in s_rows[:-NCLV]]
-        + [zqx_full[m] for m in range(NCLV)], axis=1
-    )  # (nlev, R, ncol)
-    stack_p = jnp.stack([closure[n] for n in _SCAN_P_ROWS], axis=1)
-    stack_h = jnp.stack(
-        [jnp.concatenate([v, v[-1:]], axis=0) if v.shape[0] == nlev
-         else v for v in (closure[n] for n in _SCAN_H_ROWS)], axis=1
-    )  # (nlev+1, 3, ncol)
-    return stack_s, stack_p, stack_h
-
-
-def _scan_front(fields: dict, params, ptsphy: float, config):
-    """Sections 0-1 + the scan closure (shared by cloudsc() and scan_pack()).
-
-    Returns (c, nlev, ncol, dtype, closure, zqx_full, aux) where aux carries
-    everything cloudsc() consumes OUTSIDE the vertical scan (assembly + §8).
+def cloudsc(fields: dict, params, ptsphy: float, config=None) -> CloudscOutputs:
+    """One CLOUDSC step over all columns. Jit with params/ptsphy baked in, e.g.
+    `jax.jit(lambda f: cloudsc(f, params, ptsphy))`. `config` selects the
+    scheme versions (scheme.SchemeConfig; reference defaults when None).
+    `fields` is the make_inputs field dict.
     """
-    folded = "ztp1_in" in fields  # make_inputs(fold=True) contract
-    pt = fields["ztp1_in"] if folded else fields["pt"]
+    pt = fields["pt"]
     dtype = pt.dtype
     nlev, ncol = pt.shape
     c = scheme.derived_consts(params, ptsphy, dtype, config)
@@ -260,29 +126,14 @@ def _scan_front(fields: dict, params, ptsphy: float, config):
     # ==================================================================
     # 1. INITIAL VALUES (ref: 654-808) — level_init batched over (lev, col)
     # ==================================================================
-    if folded:
-        raw = dict(
-            ztp1_in=fields["ztp1_in"], zqv_in=fields["zqv_in"],
-            za_in=fields["za_in"],
-            zqx_cld_in=[fields["zqx_cld_in"][m] for m in range(4)],
-            pap=fields["pap"],
-        )
-        if "zqsmix" in fields:
-            # folded saturation curves (make_inputs fold_curves=True):
-            # level_init consumes the precomputed rows directly
-            from .satfold import CURVE_ROWS
-
-            for name in CURVE_ROWS:
-                raw[name] = fields[name]
-    else:
-        raw = dict(
-            pt=pt, pq=fields["pq"], pa=fields["pa"], pap=fields["pap"],
-            tendency_tmp_t=fields["tendency_tmp_t"],
-            tendency_tmp_q=fields["tendency_tmp_q"],
-            tendency_tmp_a=fields["tendency_tmp_a"],
-            pclv=[fields["pclv"][m] for m in range(4)],
-            tendency_tmp_cld=[fields["tendency_tmp_cld"][m] for m in range(4)],
-        )
+    raw = dict(
+        pt=pt, pq=fields["pq"], pa=fields["pa"], pap=fields["pap"],
+        tendency_tmp_t=fields["tendency_tmp_t"],
+        tendency_tmp_q=fields["tendency_tmp_q"],
+        tendency_tmp_a=fields["tendency_tmp_a"],
+        pclv=[fields["pclv"][m] for m in range(4)],
+        tendency_tmp_cld=[fields["tendency_tmp_cld"][m] for m in range(4)],
+    )
     ini = scheme.level_init(raw, c)
 
     # The scan closes over the full (nlev, ncol) arrays and dynamic-slices the
@@ -301,10 +152,9 @@ def _scan_front(fields: dict, params, ptsphy: float, config):
         zfokoop=ini["zfokoop"],
         pap=fields["pap"], paph=fields["paph"],
         # the scheme only ever consumes these summed (scheme.level_step) —
-        # hoisting the adds here is bitwise-neutral (same IEEE adds, once);
-        # folded inputs carry the load-time fp64 sums instead
-        pmf=fields["pmf"] if folded else fields["pmfu"] + fields["pmfd"],
-        zhr=fields["zhr"] if folded else fields["phrsw"] + fields["phrlw"],
+        # hoisting the adds here is bitwise-neutral (same IEEE adds, once)
+        pmf=fields["pmfu"] + fields["pmfd"],
+        zhr=fields["phrsw"] + fields["phrlw"],
         pvervel=fields["pvervel"],
         plude_in=fields["plude"], plu=fields["plu"], psnde=fields["psnde"],
         psupsat=fields["psupsat"],
@@ -313,127 +163,15 @@ def _scan_front(fields: dict, params, ptsphy: float, config):
         pnice=fields["pnice"], plcrit_aer=fields["plcrit_aer"],
         pccn=fields["pccn"],
     )
-    if "zdqs" in fields:
-        # folded Newton (make_inputs fold_newton=True): streamed per-level
-        # row consumed by level_step in place of the 3.4b CUADJTQ
-        closure["zdqs"] = fields["zdqs"]
-    if "zdep0" in fields:
-        # folded deposition (make_inputs fold_dep=True): the 3.7 chain's
-        # raw amount + nuclei factor, consumed by level_step
-        closure["zdep0"] = fields["zdep0"]
-        closure["zinfac"] = fields["zinfac"]
-    aux = dict(
-        zqx0=ini["zqx0"], zlneg=ini["zlneg"], zfoealfa=ini["zfoealfa"],
-        tend_t_full=ini["tend_t_pre"], tend_q_full=ini["tend_q_pre"],
-        land=fields["plsm"] > 0.5, ldcum=fields["ldcum"],
-        ktype=fields["ktype"], pvfl=fields["pvfl"], pvfi=fields["pvfi"],
-    )
-    return c, nlev, ncol, dtype, closure, ini["zqx"], aux
-
-
-def scan_pack(fields: dict, params, ptsphy: float, config=None) -> dict:
-    """Pre-build the packed-closure scan buffers (pack ONCE, outside any
-    chained/timing loop) — the scan engine's analogue of the Pallas
-    pack_inputs_raw. Sections 0-1 run here at pack time; the returned dict
-    is consumed directly by cloudsc() (detected by its "stack_s" key).
-
-    Rationale: the stacking that CLOUDSC_SCAN_PACKED=1 performs INSIDE the
-    step is rebuilt on every iteration of a chained loop (the fields thread
-    the fori_loop carry, so XLA cannot hoist it), which is what made the
-    in-step packed closure LOSE on device (bench/lab18_scanpack.log,
-    ~6 GB/iter of stack rebuild). Pre-packing removes the rebuild while
-    keeping the 5-dynamic-slices-per-level schedule.
-
-    Must be called with the same `config` later passed to cloudsc() — the
-    S-stack aerosol row set depends on it (_scan_s_rows)."""
-    c, nlev, ncol, dtype, closure, zqx_full, aux = _scan_front(
-        fields, params, ptsphy, config)
-    if "zdqs" in closure or "zdep0" in closure or "zqsmix" in fields:
-        raise ValueError(
-            "scan_pack does not support folded-curves/newton/dep field "
-            "dicts (the stacks have no rows for them)"
-        )
-    stack_s, stack_p, stack_h = _scan_stacks(closure, zqx_full, c, nlev)
-    return dict(
-        stack_s=stack_s, stack_p=stack_p, stack_h=stack_h,
-        zqx0=jnp.stack(aux["zqx0"]), zlneg=jnp.stack(aux["zlneg"]),
-        pvfl=aux["pvfl"], pvfi=aux["pvfi"],
-        land=aux["land"], ldcum=aux["ldcum"], ktype=aux["ktype"],
-        # all-zero; the chained-timing data dependency enters through it
-        # (runtime/driver.chained_fn) — x + 0.0 is a bitwise identity for
-        # the strictly positive surface pressures it lands on
-        dep=jnp.zeros((ncol,), dtype),
-    )
-
-
-def cloudsc(fields: dict, params, ptsphy: float, config=None) -> CloudscOutputs:
-    """One CLOUDSC step over all columns. Jit with params/ptsphy baked in, e.g.
-    `jax.jit(lambda f: cloudsc(f, params, ptsphy))`. `config` selects the
-    scheme versions (scheme.SchemeConfig; reference defaults when None).
-    Accepts either the make_inputs field dict (plain or folded) or the
-    pre-packed closure from scan_pack() (detected by the "stack_s" key).
-    """
-    # Packed-closure scan (CLOUDSC_SCAN_PACKED=1 stacks in-step; scan_pack()
-    # dicts arrive pre-stacked): the per-level closure arrays live in three
-    # buffers so each scan step issues FIVE dynamic-slices instead of ~40.
-    # Stacking copies values and the unpack is static row indexing — the op
-    # sequence is identical; XLA's FMA-contraction choices in the rebuilt
-    # fusion clusters shift outputs by ≤1 contraction ulp (5.5e-15 max rel
-    # measured, tests/test_invariance.py; fp64 goldens hold). A measured-
-    # schedule knob like the kernel's packed storage (ref: the hoisted-
-    # temporaries driver variant, cloudsc_driver_gpu_scc_hoist_mod.F90:136-169).
-    prepacked = "stack_s" in fields
-    scan_packed = prepacked or \
-        os.environ.get("CLOUDSC_SCAN_PACKED", "0") == "1"
-    if prepacked:
-        _stack_s, _stack_p, _stack_h = (
-            fields["stack_s"], fields["stack_p"], fields["stack_h"]
-        )
-        dtype = _stack_s.dtype
-        nlev, ncol = _stack_s.shape[0], _stack_s.shape[2]
-        c = scheme.derived_consts(params, ptsphy, dtype, config)
-        _S_IDX = {n: i for i, n in enumerate(_scan_s_rows(c))}
-        zqx0 = [fields["zqx0"][m] for m in range(NCLV)]
-        zlneg = [fields["zlneg"][m] for m in range(NCLV)]
-        zfoealfa = _stack_s[:, _S_IDX["zfoealfa"]]
-        tend_t_full = _stack_s[:, _S_IDX["tend_t_pre"]]
-        tend_q_full = _stack_s[:, _S_IDX["tend_q_pre"]]
-        plude_in_full = _stack_s[:, _S_IDX["plude_in"]]
-        pvfl, pvfi = fields["pvfl"], fields["pvfi"]
-        pap = _stack_p[:, 2]
-        ztp1_full = _stack_p[:, 0]
-        paph = _stack_h[:, 0]
-        # fields["dep"] is all-zero — the chained-timing data dependency
-        # enters here; x + 0.0 is a bitwise identity for positive pressures
-        paph_surf = paph[nlev] + fields["dep"]
-        land, ldcum, ktype = fields["land"], fields["ldcum"], fields["ktype"]
-        closure = None
-        _zqx_full = None
-    else:
-        c, nlev, ncol, dtype, closure, _zqx_full, aux = _scan_front(
-            fields, params, ptsphy, config)
-        zqx0 = aux["zqx0"]
-        zlneg = aux["zlneg"]
-        zfoealfa = aux["zfoealfa"]
-        tend_t_full, tend_q_full = aux["tend_t_full"], aux["tend_q_full"]
-        plude_in_full = fields["plude"]
-        pvfl, pvfi = aux["pvfl"], aux["pvfi"]
-        pap, paph = closure["pap"], closure["paph"]
-        ztp1_full = closure["ztp1"]
-        paph_surf = paph[nlev]
-        land, ldcum, ktype = aux["land"], aux["ldcum"], aux["ktype"]
-        if scan_packed:
-            if "zdqs" in closure or "zdep0" in closure \
-                    or "zqsmix" in fields:
-                raise ValueError(
-                    "the packed-closure scan does not support folded-"
-                    "curves/newton/dep field dicts (the stacks have no "
-                    "rows for them); unset CLOUDSC_SCAN_PACKED for the "
-                    "oracle"
-                )
-            _stack_s, _stack_p, _stack_h = _scan_stacks(
-                closure, _zqx_full, c, nlev)
-            _S_IDX = {n: i for i, n in enumerate(_scan_s_rows(c))}
+    zqx0, zlneg, zfoealfa = ini["zqx0"], ini["zlneg"], ini["zfoealfa"]
+    tend_t_full, tend_q_full = ini["tend_t_pre"], ini["tend_q_pre"]
+    plude_in_full = fields["plude"]
+    pvfl, pvfi = fields["pvfl"], fields["pvfi"]
+    pap, paph = closure["pap"], closure["paph"]
+    ztp1_full = closure["ztp1"]
+    paph_surf = paph[nlev]
+    land, ldcum, ktype = fields["plsm"] > 0.5, fields["ldcum"], fields["ktype"]
+    _zqx_full = ini["zqx"]
 
     ktop = c.NCLDTOP - 1           # 0-based first scan level
     zqtmst = c.zqtmst
@@ -459,62 +197,6 @@ def cloudsc(fields: dict, params, ptsphy: float, config=None) -> CloudscOutputs:
     # ==================================================================
     def make_x(k):
         """Per-level view: rows at jk (and jk-1 / jk+1 where the scheme needs)."""
-        if scan_packed:
-            sk = jax.lax.dynamic_index_in_dim(_stack_s, k, 0, keepdims=False)
-            pk = jax.lax.dynamic_index_in_dim(_stack_p, k, 0, keepdims=False)
-            pkm = jax.lax.dynamic_index_in_dim(
-                _stack_p, k - 1, 0, keepdims=False)
-            hk = jax.lax.dynamic_index_in_dim(_stack_h, k, 0, keepdims=False)
-            hkp = jax.lax.dynamic_index_in_dim(
-                _stack_h, k + 1, 0, keepdims=False)
-            _pi = {n: i for i, n in enumerate(_SCAN_P_ROWS)}
-            _hi = {n: i for i, n in enumerate(_SCAN_H_ROWS)}
-
-            def row(name, off=0):
-                if name in _pi:
-                    src = {0: pk, -1: pkm}[off]
-                    return src[_pi[name]]
-                if name in _hi:
-                    src = {0: hk, 1: hkp}[off]
-                    return src[_hi[name]]
-                assert off == 0, (name, off)
-                return sk[_S_IDX[name]]
-
-            x = {
-                "ztp1": row("ztp1"), "ztp1_prev": row("ztp1", -1),
-                "za": row("za"), "za_prev": row("za", -1),
-                "zaorig": row("zaorig"),
-                "zqx": [sk[_S_IDX[f"zqx{m}"]] for m in range(NCLV)],
-                "zqsmix": row("zqsmix"), "zqsliq": row("zqsliq"),
-                "zqsice": row("zqsice"), "zfoeew": row("zfoeew"),
-                "zfoeewmt": row("zfoeewmt"), "zfoeeliqt": row("zfoeeliqt"),
-                "zfoealfa": row("zfoealfa"), "zli": row("zli"),
-                "zliqfrac": row("zliqfrac"), "zicefrac": row("zicefrac"),
-                "zfoeeliq": row("zfoeeliq"), "zfoeeice": row("zfoeeice"),
-                "zfokoop": row("zfokoop"),
-                "pap": row("pap"), "pap_prev": row("pap", -1),
-                "paph": row("paph"), "paph_next": row("paph", 1),
-                "pmf": row("pmf"), "pmf_next": row("pmf", 1),
-                "pvervel": row("pvervel"), "zhr": row("zhr"),
-                "plude_in": row("plude_in"), "plu_next": row("plu", 1),
-                "psnde": row("psnde"), "psupsat": row("psupsat"),
-                "tend_t_pre": row("tend_t_pre"),
-                "tend_q_pre": row("tend_q_pre"),
-                "paph_surf": paph_surf, "land": land,
-                "ldcum": ldcum, "ktype": ktype,
-                "not_first": k > ktop,
-                "not_last": k < nlev - 1,
-            }
-            if c.LAERICESED:
-                x["pre_ice"] = row("pre_ice")
-            if c.LAERICEAUTO:
-                x["picrit_aer"] = row("picrit_aer")
-                x["pnice"] = row("pnice")
-            if c.LAERLIQAUTOLSP or c.LAERLIQCOLL:
-                x["plcrit_aer"] = row("plcrit_aer")
-                x["pccn"] = row("pccn")
-            return x
-
         row = lambda name, off=0: jax.lax.dynamic_index_in_dim(
             closure[name], k + off, axis=0, keepdims=False
         )
@@ -552,11 +234,6 @@ def cloudsc(fields: dict, params, ptsphy: float, config=None) -> CloudscOutputs:
         if c.LAERLIQAUTOLSP or c.LAERLIQCOLL:
             x["plcrit_aer"] = row("plcrit_aer")
             x["pccn"] = row("pccn")
-        if closure is not None and "zdqs" in closure:
-            x["zdqs"] = row("zdqs")
-        if closure is not None and "zdep0" in closure:
-            x["zdep0"] = row("zdep0")
-            x["zinfac"] = row("zinfac")
         return x
 
     xs = jnp.arange(ktop, nlev, dtype=jnp.int32)
@@ -573,15 +250,15 @@ def cloudsc(fields: dict, params, ptsphy: float, config=None) -> CloudscOutputs:
     # unroll: XLA fuses across consecutive levels (fewer loop-boundary
     # materializations of the ~40-array carry/slice working set). Value- and
     # order-exact — the per-level ops are unchanged, only the loop structure
-    # differs — so the fp64 goldens hold bitwise. Measured A/B (docs/
-    # PERFORMANCE.md "Scan engine"): unroll=4 wins on TPU fp32 (+9.4%,
-    # bench/lab11_grouped.log [4e]) and CPU fp64 (+16%), loses on CPU fp32
-    # (−12%) — default per (platform, dtype); CLOUDSC_SCAN_UNROLL overrides.
-    on_cpu = jax.default_backend() == "cpu"
-    fp64 = dtype == jnp.float64
-    unroll = int(os.environ.get(
-        "CLOUDSC_SCAN_UNROLL", "1" if (on_cpu and not fp64) else "4"
-    ))
+    # differs — so the fp64 goldens hold bitwise. GPU: measured at 163,840
+    # columns on an H100 (PERF.md), unroll 2 and 4 both run ~3% faster than
+    # 1 in fp32 and fp64, and 4 doubles the compile time of 2, so 2. CPU:
+    # 4 in fp64, 1 in fp32 (CPU A/B). CLOUDSC_SCAN_UNROLL overrides.
+    if jax.default_backend() == "gpu":
+        default_unroll = "2"
+    else:
+        default_unroll = "4" if dtype == jnp.float64 else "1"
+    unroll = int(os.environ.get("CLOUDSC_SCAN_UNROLL", default_unroll))
     carry_end, ys = jax.lax.scan(step, carry0, xs, unroll=unroll)
 
     # ==================================================================

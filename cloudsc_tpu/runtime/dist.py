@@ -2,7 +2,7 @@
 
 The reference's entire distributed backend is a thin MPI wrapper used for (a)
 splitting columns across ranks at load time and (b) reducing validation norms /
-gathering perf rows (ref: src/common/module/cloudsc_mpi_mod.F90). The TPU-native
+gathering perf rows (ref: src/common/module/cloudsc_mpi_mod.F90). The JAX
 equivalent:
 
   * columns are sharded over a 1-D `jax.sharding.Mesh` ("columns" axis); the
@@ -11,7 +11,9 @@ equivalent:
     (ref: dwarf_cloudsc.F90:74-77, expand_mod.F90:30-46)
   * validation norms use psum/pmin/pmax inside shard_map — the analogue of
     CLOUDSC_MPI_REDUCE_* (ref: cloudsc_mpi_mod.F90:109-269)
-  * multi-host init maps to jax.distributed.initialize
+  * multi-host init maps to jax.distributed.initialize; each process owns
+    exactly one GPU (a second JAX process on a card fails for want of
+    memory, since each reserves most of it at start-up)
 """
 
 from __future__ import annotations
@@ -71,118 +73,42 @@ def shard_fields(fields: dict, mesh: Mesh) -> dict:
     out = {}
     for k, v in fields.items():
         sharding = NamedSharding(mesh, _field_spec(np.ndim(v)))
-        out[k] = jax.device_put(jnp.asarray(v), sharding)
+        out[k] = jax.device_put(v, sharding)
     return out
 
 
 def sharded_cloudsc(params, ptsphy: float, mesh: Mesh, backend: str = "xla",
-                    **kw):
+                    config=None):
     """Jitted CLOUDSC whose inputs/outputs are column-sharded over the mesh.
 
-    There is deliberately no shard_map here: the scheme has no cross-column
-    dependency, so plain jit + sharding annotations compiles to fully
-    partitioned SPMD code with zero collectives (matching the reference, whose
-    compute path has no MPI calls either). backend="pallas" runs the fused TPU
-    kernel per shard instead of the XLA scan.
+    The scheme has no cross-column dependency, so the compute path needs no
+    collectives (matching the reference, whose compute path has no MPI calls
+    either). The XLA scan is plain jit + sharding annotations, which XLA
+    partitions itself. backend="triton" runs the fused kernel on each
+    device's shard under shard_map: a pallas_call is a custom call XLA
+    cannot partition.
     """
-    from ..physics import cloudsc
+    from jax import shard_map
 
-    config = kw.pop("config", None)
-    if backend == "pallas":
-        from ..kernels import cloudsc_pallas
-        compute = lambda f: cloudsc_pallas(f, params, ptsphy, config=config,
-                                           **kw)
-    else:
-        compute = lambda f: cloudsc(f, params, ptsphy, config=config)
+    from .. import kernels
+
+    step = kernels.step_fn(backend)
+
+    def compute(fields):
+        return step(fields, params, ptsphy, config)
 
     def fn(fields):
+        if backend == "triton":
+            in_specs = ({k: _field_spec(v.ndim) for k, v in fields.items()},)
+            shapes = jax.eval_shape(compute, fields)
+            out_specs = jax.tree.map(lambda s: _field_spec(s.ndim), shapes)
+            return shard_map(compute, mesh=mesh, in_specs=in_specs,
+                             out_specs=out_specs, check_vma=False)(fields)
         out = compute(fields)
         specs = jax.tree.map(lambda x: _field_spec(x.ndim), out)
         return jax.lax.with_sharding_constraint(
             out, jax.tree.map(lambda s: NamedSharding(mesh, s), specs)
         )
-
-    return jax.jit(fn)
-
-
-def _packed_spec(ndim: int) -> P:
-    """PartitionSpec for one packed buffer. 4-D/3-D buffers shard over the
-    column-block axis (axis -2); the 5-D tile-major pack shards over its
-    tile axis (axis 1, `ni`) — the same columns, coarser blocks."""
-    if ndim == 5:
-        return P(None, COLUMN_AXIS, None, None, None)
-    return P(*([None] * (ndim - 2) + [COLUMN_AXIS, None]))
-
-
-def shard_packed(packed: dict, mesh: Mesh) -> dict:
-    """Place a packed-storage pytree on the mesh, sharded over the
-    column-block axis (axis -2 of every buffer; tile axis for a 5-D
-    tile-major pack)."""
-    out = {}
-    for k, v in packed.items():
-        out[k] = jax.device_put(v, NamedSharding(mesh, _packed_spec(v.ndim)))
-    return out
-
-
-def tile_major_packed(packed: dict, mesh: Mesh, sublanes: int) -> dict:
-    """Shard-aware tile-major relayout of a folded packed pytree.
-
-    Each device relayouts its OWN column shard (pure local
-    reshape/transpose, zero collectives) — valid because the driver pads to
-    whole tiles per device (prepare() gran = sublanes x mesh size), so a
-    shard's block axis is tile-aligned and the local relayout equals the
-    global one restricted to the shard. Packed storage stays orthogonal to
-    distribution exactly like the reference's FIELD-API packed option under
-    MPI (ref: cloudsc_field_state_mod.F90:29-59). Layout prep outside the
-    timed loop, like the grouped-column permutation."""
-    from jax import shard_map
-
-    from ..kernels.pallas_cloudsc import pack_to_tile_major
-
-    in_specs = ({k: _packed_spec(v.ndim) for k, v in packed.items()},)
-    local = lambda p: pack_to_tile_major(p, sublanes)
-    shapes = jax.eval_shape(local, packed)
-    out_specs = {k: _packed_spec(s.ndim) for k, s in shapes.items()}
-    return jax.jit(shard_map(
-        local, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-        check_vma=False,
-    ))(packed)
-
-
-def sharded_cloudsc_packed(params, ptsphy: float, mesh: Mesh,
-                           sublanes: int = 32, config=None,
-                           interpret: bool = False,
-                           fold_outputs: bool | None = None):
-    """The fused Pallas kernel over a column mesh via shard_map.
-
-    pallas_call is a custom call XLA cannot partition, so the packed fast
-    path scales with shard_map: each device runs the kernel on its column
-    shard; there are no collectives (the reference's compute path has no MPI
-    either). Inputs come from `pack_inputs` + `shard_packed`."""
-    from ..kernels.pallas_cloudsc import cloudsc_pallas
-    from jax import shard_map
-
-    def fn(packed):
-        # 5-D tile-major packs shard over the tile axis, everything else
-        # over the column-block axis (see _packed_spec)
-        in_specs = ({k: _packed_spec(v.ndim) for k, v in packed.items()},)
-
-        def local(p):
-            return cloudsc_pallas(
-                None, params, ptsphy, sublanes=sublanes, packed=p,
-                interpret=interpret, config=config,
-                fold_outputs=fold_outputs,
-            )
-
-        # probe output structure to build out_specs (columns = trailing axis)
-        shapes = jax.eval_shape(local, packed)
-        out_specs = jax.tree.map(
-            lambda s: P(*([None] * (s.ndim - 1) + [COLUMN_AXIS])), shapes
-        )
-        return shard_map(
-            local, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_vma=False,
-        )(packed)
 
     return jax.jit(fn)
 

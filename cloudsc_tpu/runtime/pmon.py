@@ -2,7 +2,7 @@
 
 The reference samples Cray pm_counters during the block loop when the EC_PMON
 env var is set (ref: src/common/module/ec_pmon_mod.F90:14-57,
-cloudsc_driver_mod.F90:170-178). TPU hosts have no Cray counters; this reads
+cloudsc_driver_mod.F90:170-178). Most hosts have no Cray counters; this reads
 the same Cray paths when present and falls back to Linux RAPL
 (/sys/class/powercap) so CPU-side energy is still reported where available.
 Disabled (returning None) unless EC_PMON is set, matching the reference.

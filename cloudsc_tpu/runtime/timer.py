@@ -6,7 +6,7 @@ flop model ZHPM = 12,482,329 flops per 100 columns at L137 (ref: timer_mod.F90:2
 and columns/s, in the same column layout JUBE scrapes
 (ref: benchmark/include/include_patternset.yml:162-173).
 
-On TPU the "threads" of the reference map to devices; per-device rows are
+Here the "threads" of the reference map to devices; per-device rows are
 reported with the device id in the tid column. GPU-style split timings
 (kernel-only vs end-to-end with transfers, ref: README.md:311-318) are kept as
 separate fields.
@@ -44,6 +44,7 @@ class Timings:
     compute_s: float = 0.0
     d2h_s: float = 0.0
     energy_line: str | None = None  # EC_PMON report (None unless enabled)
+    memory: object = None  # the step's compiled.memory_analysis()
 
     @property
     def total_s(self) -> float:

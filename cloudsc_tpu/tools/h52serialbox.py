@@ -2,7 +2,7 @@
 
 The reference regenerates its own Serialbox archives from a prototype1 run via
 env-gated write hooks (ref: src/prototype1/support/serialize_mod.F90:62-130,
-README.md:199-205). This is the TPU framework's equivalent write path: it turns
+README.md:199-205). This is this framework's equivalent write path: it turns
 an input.h5/reference.h5-style snapshot (as written by data.io.write_h5 or the
 shipped mirrors) back into the raw archive the reference consumes —
 <prefix>_<FIELD>.dat column-major dumps + MetaData-<prefix>.json +

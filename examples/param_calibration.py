@@ -102,8 +102,8 @@ def main() -> int:
 
     # --- 3. perturbed-parameter ensemble in ONE compile (vmap) -----------
     # the PPE workflow (run the scheme under N parameter perturbations and
-    # look at the output spread) is a single jit(vmap(...)) here — on a TPU
-    # mesh the ensemble axis shards for free
+    # look at the output spread) is a single jit(vmap(...)) here — on a
+    # device mesh the ensemble axis shards for free
     thetas = jnp.float64(true_theta) * jnp.geomspace(0.25, 4.0, 9)
     ens = jax.jit(jax.vmap(misfit))(thetas)
     print("\nperturbed-parameter ensemble (9 members, one compile):")

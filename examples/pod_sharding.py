@@ -1,4 +1,4 @@
-"""Run CLOUDSC column-sharded over a device mesh (pod-slice usage).
+"""Run CLOUDSC column-sharded over a device mesh (several GPUs).
 
 Columns are embarrassingly parallel, so multi-chip CLOUDSC is a pure
 data-parallel mesh over the column axis with ZERO collectives in the
@@ -6,7 +6,7 @@ compute path — exactly the reference's MPI column decomposition
 (ref: dwarf_cloudsc.F90:74-77); only the validation norms reduce
 (psum/pmin/pmax, the CLOUDSC_MPI_REDUCE_* analogue).
 
-On real hardware just run it on a pod slice; without one, this demo uses
+On a machine with several GPUs just run it; without them, this demo uses
 8 virtual CPU devices:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \\

@@ -5,7 +5,8 @@ CLOUDSC once per block and validates); in the IFS the scheme runs every
 timestep with the prognostic state advanced by its own tendencies. This
 example closes that loop on-device: the whole N-step integration is a single
 `lax.scan` inside one jit — no host round-trips between steps, the layout
-(and on TPU, the packed/grouped column permutation) persists end to end.
+(and with the fused kernel, the grouped column permutation) persists end to
+end.
 
 State advanced each step (what the IFS time-stepping applies):
 

@@ -10,11 +10,11 @@ raw outputs for the parent's bitwise comparison against a single-process run
 Usage: python tests/_mp_worker.py RANK NRANKS PORT OUTDIR [NGPTOTG] [MODE]
 
 MODE "cli" (default): the CLI + per-rank column-slice snapshot above.
-MODE "packed": the production pod configuration — the packed shard_map
-Pallas path (interpret mode on CPU) over a GLOBAL 2-process mesh; each rank
-snapshots its addressable output shard for the parent's bitwise comparison
-against a single-process packed run (ref: the reference MPI-tests the same
-kernel it benchmarks, src/cloudsc_fortran/CMakeLists.txt:42-73).
+MODE "kernel": the fused kernel under shard_map (interpret mode on CPU)
+over a GLOBAL 2-process mesh; each rank snapshots its addressable output
+shard for the parent's bitwise comparison against a single-process kernel
+run (ref: the reference MPI-tests the same kernel it benchmarks,
+src/cloudsc_fortran/CMakeLists.txt:42-73).
 """
 
 import contextlib
@@ -32,9 +32,9 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["JAX_COORDINATOR_ADDRESS"] = f"localhost:{port}"
 os.environ["JAX_NUM_PROCESSES"] = str(nranks)
 os.environ["JAX_PROCESS_ID"] = str(rank)
-if mode == "packed":
+if mode == "kernel":
     # one device per process (the parent pytest env forces 8 virtual CPU
-    # devices; here each process models one chip of a pod slice)
+    # devices; here each process models one GPU of a multi-host run)
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -43,16 +43,22 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-if mode == "packed":
-    os.environ["CLOUDSC_PALLAS_INTERPRET"] = "1"
+if mode == "kernel":
+    import functools
+
     import jax.numpy as jnp
     import numpy as np
 
     from cloudsc_tpu.data import default_input_path, load_input
+    from cloudsc_tpu.kernels.triton_cloudsc import cloudsc_triton
     from cloudsc_tpu.params import Params
+    from cloudsc_tpu import kernels
     from cloudsc_tpu.runtime.dist import (column_mesh, initialize_multihost,
-                                          shard_packed)
+                                          shard_fields)
     from cloudsc_tpu.runtime.driver import CloudscDriver
+
+    kernels.step_fn = lambda backend: functools.partial(cloudsc_triton,
+                                                        interpret=True)
 
     initialize_multihost()
     mesh = column_mesh()  # 1 CPU device per process -> nranks global devices
@@ -62,12 +68,11 @@ if mode == "packed":
     inp = load_input(default_input_path(), ngptot=ngptotg, expand=False)
     params = Params.from_input(inp)
     driver = CloudscDriver(params, inp.ptsphy, dtype=jnp.float32,
-                           nproma=128, backend="pallas", mesh=mesh,
-                           sublanes=1)
-    assert driver.packed and not driver.grouped
+                           nproma=128, backend="triton", mesh=mesh)
+    assert not driver.grouped
     fields, ncol = driver.prepare(inp)
-    fields = shard_packed(fields, mesh)
-    out = driver.fn_for(ncol)(fields)
+    fields = shard_fields(fields, mesh)
+    out = driver._fn(fields)
     jax.block_until_ready(out)
     save = {}
     for name in ("tendency_loc_t", "pfplsl", "plude", "prainfrac_toprfz"):
@@ -76,7 +81,7 @@ if mode == "packed":
         (sh,) = shards
         save[name] = np.asarray(sh.data)
         save[name + "_start"] = np.int64(sh.index[-1].start or 0)
-    np.savez(outdir / f"packed_out_{rank}.npz", **save)
+    np.savez(outdir / f"kernel_out_{rank}.npz", **save)
     sys.exit(0)
 
 from cloudsc_tpu.cli import main  # noqa: E402

@@ -9,7 +9,6 @@ the snapshot writers.
 import io
 import contextlib
 
-import h5py
 import numpy as np
 import pytest
 
@@ -52,6 +51,7 @@ def test_cli_chained_iterations():
 
 
 def test_cli_write_reference(tmp_path):
+    h5py = pytest.importorskip("h5py")  # the snapshot writers write HDF5
     ref_out = tmp_path / "ref_regen.h5"
     rc, out = _run([
         "1", "100", "16", "--precision", "fp64", "--no-validate",
@@ -59,7 +59,7 @@ def test_cli_write_reference(tmp_path):
     ])
     assert rc == 0
     from conftest import REFERENCE_H5 as shipped
-    with h5py.File(ref_out) as a, h5py.File(shipped) as b:
+    with h5py.File(ref_out) as a, np.load(shipped) as b:
         for k in b.keys():
             if k in ("KLON", "KLEV", "KFLDX"):
                 continue
@@ -69,8 +69,10 @@ def test_cli_write_reference(tmp_path):
             assert np.abs(x - y).sum() / denom < 5e-12, k
 
 
-def test_cli_bad_precision_kernel_combo():
-    with pytest.raises(ValueError, match="fp32-only"):
+def test_cli_rejects_unknown_kernel():
+    """The engines are `scan` and `triton` (and `auto`); nothing else is
+    accepted, in any precision."""
+    with pytest.raises(SystemExit):
         main(["1", "100", "16", "--precision", "fp64", "--kernel", "pallas",
               "--no-validate"])
 

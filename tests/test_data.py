@@ -119,3 +119,38 @@ def test_per_rank_slicing_serialbox_dir():
     # parameter tables are never column-sliced
     np.testing.assert_array_equal(r1.fields["YRECLDP_RBETA"],
                                   full.fields["YRECLDP_RBETA"])
+
+
+@pytest.mark.parametrize("name", ["input", "reference"])
+def test_npz_matches_h5_bitwise(name):
+    """The .npz snapshots the program reads hold exactly the .h5 mirrors'
+    datasets: same names, shapes, dtypes and bits (tools/h52npz.py)."""
+    h5py = pytest.importorskip("h5py")
+    from pathlib import Path
+
+    data = Path(REFERENCE_DATA).resolve().parent
+    with h5py.File(data / f"{name}.h5", "r") as h5, \
+            np.load(data / f"{name}.npz") as npz:
+        assert sorted(h5.keys()) == sorted(npz.files)
+        for key in npz.files:
+            want, got = np.asarray(h5[key]), npz[key]
+            assert got.dtype == want.dtype and got.shape == want.shape, key
+            np.testing.assert_array_equal(got, want, err_msg=key)
+
+
+def test_default_loaders_read_npz_without_h5py():
+    """The main path's loaders never import h5py."""
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.modules['h5py'] = None\n"
+            "from cloudsc_tpu.data import (default_input_path, "
+            "default_reference_path, load_input, load_reference)\n"
+            "inp = load_input(default_input_path(), ngptot=300)\n"
+            "ref = load_reference(default_reference_path(), ngptot=300)\n"
+            "assert inp.fields['PT'].shape == (137, 300)\n"
+            "assert ref['PLUDE'].shape == (137, 300)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -1,11 +1,11 @@
-"""Activity-grouped column layout: permutation math, native packer, and
-bitwise equality of grouped vs cyclic kernel outputs.
+"""Activity-grouped column layout: permutation math and bitwise equality of
+grouped vs cyclic kernel outputs.
 
 The benchmark expansion tiles the snapshot's KLON columns cyclically
-(ref: expand_mod.F90:237-334), so every Pallas column tile mixes all
-distinct columns and the per-tile dynamic skips degenerate to the
+(ref: expand_mod.F90:237-334), so every column block of the fused kernel
+mixes many distinct columns and the per-block dynamic skips approach the
 whole-batch rate. The grouped layout writes each source column's copies
-contiguously — a pure permutation — making tiles homogeneous. Because
+contiguously — a pure permutation — making blocks homogeneous. Because
 columns are independent and the skips are value-exact, gathering grouped
 outputs with group_inverse must reconstruct the cyclic outputs BITWISE.
 """
@@ -22,16 +22,16 @@ from cloudsc_tpu.data.expand import (
     group_counts,
     group_inverse,
 )
+from cloudsc_tpu.kernels.triton_cloudsc import cloudsc_triton
 from cloudsc_tpu.params import Params
-from cloudsc_tpu.kernels import cloudsc_pallas
-from cloudsc_tpu.kernels.pallas_cloudsc import pack_inputs_raw
+from cloudsc_tpu.physics import make_inputs
 
 from conftest import REFERENCE_DATA as INPUT_PATH
 
 
 @pytest.mark.parametrize("klon,ncol", [(7, 23), (100, 256), (5, 5), (10, 3),
                                        (100, 163840)])
-def test_group_permutation_properties(klon, ncol):
+def testgroup_permutation_properties(klon, ncol):
     counts = group_counts(klon, ncol)
     assert counts.sum() == ncol
     # grouped source ids are a permutation of the cyclic source ids
@@ -95,162 +95,85 @@ def test_expand_field_grouped_is_permutation():
     np.testing.assert_array_equal(grp[..., inv], cyc)
 
 
-def test_native_grouped_pack_matches_numpy():
-    from cloudsc_tpu.native import pack_expand_native
+@pytest.fixture
+def interpreted_driver(monkeypatch):
+    """The driver with the fused kernel in interpret mode (CPU)."""
+    import functools
 
-    rng = np.random.default_rng(1)
-    srcs = [rng.standard_normal((4, 7)), rng.standard_normal((1, 7))]
-    ncol, target, nlev_rows = 23, 32, 4
-    out = pack_expand_native(srcs, ncol, target, nlev_rows, grouped=True)
-    if out is None:
-        pytest.skip("native library unavailable")
-    counts = group_counts(7, ncol)
-    for r, s in enumerate(srcs):
-        for k in range(nlev_rows):
-            lev = min(k, s.shape[0] - 1)
-            want = np.repeat(s[lev].astype(np.float32), counts)
-            np.testing.assert_array_equal(out[k, r, :ncol], want)
-            np.testing.assert_array_equal(
-                out[k, r, ncol:], np.full(target - ncol, want[-1])
-            )
+    from cloudsc_tpu.kernels.triton_cloudsc import cloudsc_triton
+    from cloudsc_tpu import kernels
+    from cloudsc_tpu.runtime import driver as drv
+
+    monkeypatch.setattr(kernels, "step_fn", lambda backend: functools.partial(
+        cloudsc_triton, interpret=True))
+    return drv.CloudscDriver
 
 
-def test_grouped_pallas_outputs_bitwise_equal_cyclic():
-    """End-to-end: the packed kernel on the grouped layout, inverse-gathered,
-    is bitwise identical to the cyclic layout (interpret mode on CPU)."""
+def _cyclic_kernel(inp, params):
+    fields = make_inputs(inp, dtype=jnp.float32)
+    return cloudsc_triton(fields, params, inp.ptsphy, interpret=True)
+
+
+def _assert_bitwise(want, got):
+    for name in want._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(want, name)),
+                                      np.asarray(getattr(got, name)),
+                                      err_msg=name)
+
+
+def test_grouped_kernel_outputs_bitwise_equal_cyclic():
+    """End-to-end: the kernel on the grouped layout, inverse-gathered, is
+    bitwise identical to the cyclic layout (interpret mode on CPU)."""
     ngptot = 256
     inp = load_input(INPUT_PATH, ngptot=ngptot, expand=False)
     params = Params.from_input(inp)
     klon = np.asarray(inp.fields["PT"]).shape[-1]
     assert klon < ngptot  # grouping must actually permute here
 
-    outs = {}
-    for order in ("cyclic", "grouped"):
-        p, ncol = pack_inputs_raw(inp, sublanes=1, params=params,
-                                  dtype=jnp.float32, column_order=order)
-        p = jax.device_put(p)
-        outs[order] = cloudsc_pallas(
-            None, params, inp.ptsphy, sublanes=1, interpret=True,
-            packed=p, ncol_packed=ncol,
-        )
-
+    grouped = make_inputs(inp, dtype=jnp.float32, column_order="grouped")
+    out = cloudsc_triton(grouped, params, inp.ptsphy, interpret=True)
     inv = group_inverse(klon, ngptot)
-    regrouped = jax.tree.map(lambda a: a[..., inv], outs["grouped"])
-    for name in outs["cyclic"]._fields:
-        a = np.asarray(getattr(outs["cyclic"], name))
-        b = np.asarray(getattr(regrouped, name))
-        np.testing.assert_array_equal(a, b, err_msg=name)
+    _assert_bitwise(_cyclic_kernel(inp, params),
+                    jax.tree.map(lambda a: a[..., inv], out))
 
 
-def test_driver_grouped_matches_cyclic(monkeypatch):
-    """The driver glue: prepare() packs grouped (plain and activity-sorted),
+def test_driver_grouped_matches_cyclic(interpreted_driver):
+    """The driver glue: prepare() expands grouped and activity-sorted,
     run() gathers outputs back to canonical order — returned outputs must be
-    bitwise identical to a cyclic-layout run (interpret-mode pallas backend
-    on CPU)."""
-    from cloudsc_tpu.runtime.driver import CloudscDriver
-
-    monkeypatch.setenv("CLOUDSC_PALLAS_INTERPRET", "1")
+    bitwise identical to the kernel on the cyclic layout."""
     inp = load_input(INPUT_PATH, ngptot=256, expand=False)
     params = Params.from_input(inp)
-    outs = {}
-    for group, sort in (("1", "1"), ("1", "0"), ("0", "0")):
-        monkeypatch.setenv("CLOUDSC_GROUP_COLUMNS", group)
-        monkeypatch.setenv("CLOUDSC_GROUP_SORT", sort)
-        d = CloudscDriver(params, inp.ptsphy, dtype=jnp.float32,
-                          backend="pallas", sublanes=1)
-        assert d.grouped == (group == "1")
-        assert d.group_sort == (group == "1" and sort == "1")
-        out, _, _ = d.run(inp, iterations=1)
-        if group == "1" and sort == "1":
-            assert d._group_perm is not None
-        outs[(group, sort)] = out
-    base = outs[("0", "0")]
-    for key in (("1", "0"), ("1", "1")):
-        for name in base._fields:
-            np.testing.assert_array_equal(
-                np.asarray(getattr(base, name)),
-                np.asarray(getattr(outs[key], name)), err_msg=f"{key} {name}",
-            )
+    d = interpreted_driver(params, inp.ptsphy, dtype=jnp.float32,
+                           backend="triton")
+    assert d.grouped
+    out, _, _ = d.run(inp, iterations=1)
+    assert d.group_perm is not None
+    _assert_bitwise(_cyclic_kernel(inp, params), out)
 
 
-def test_driver_grouped_small_ngptot(monkeypatch):
+def test_driver_grouped_small_ngptot(interpreted_driver):
     """ngptot < klon: fewer requested columns than the snapshot holds (the
     reference's ctest runs e.g. `1 100 16`). The grouped expansion then has
     empty groups and the activity sort must self-disable (driver only sorts
     when klon < ncol) — outputs must still match the cyclic layout bitwise."""
-    from cloudsc_tpu.runtime.driver import CloudscDriver
-
-    monkeypatch.setenv("CLOUDSC_PALLAS_INTERPRET", "1")
     inp = load_input(INPUT_PATH, ngptot=16, expand=False)
     params = Params.from_input(inp)
-    outs = {}
-    for group in ("1", "0"):
-        monkeypatch.setenv("CLOUDSC_GROUP_COLUMNS", group)
-        d = CloudscDriver(params, inp.ptsphy, dtype=jnp.float32,
-                          backend="pallas", sublanes=1)
-        out, _, _ = d.run(inp, iterations=1)
-        assert d._group_perm is None  # sort self-disabled below klon
-        outs[group] = out
-    for name in outs["0"]._fields:
-        np.testing.assert_array_equal(
-            np.asarray(getattr(outs["0"], name)),
-            np.asarray(getattr(outs["1"], name)), err_msg=name,
-        )
+    d = interpreted_driver(params, inp.ptsphy, dtype=jnp.float32,
+                           backend="triton")
+    out, _, _ = d.run(inp, iterations=1)
+    assert d.group_perm is None  # sort self-disabled below klon
+    _assert_bitwise(_cyclic_kernel(inp, params), out)
 
 
-def test_grouped_mesh_outputs_bitwise_equal_cyclic():
-    """Grouped layout over the column mesh (shard_map + interpret kernel):
-    the inverse gather crosses shard boundaries and must still reconstruct
-    the cyclic outputs bitwise."""
-    from cloudsc_tpu.runtime import dist
-
-    devices = jax.devices()
-    if len(devices) < 8:
-        pytest.skip("needs the virtual 8-device mesh")
-    mesh = dist.column_mesh(devices[:8])
-    ngptot = 8 * 2 * 128
-    inp = load_input(INPUT_PATH, ngptot=ngptot, expand=False)
-    params = Params.from_input(inp)
-    klon = np.asarray(inp.fields["PT"]).shape[-1]
-
-    fn = dist.sharded_cloudsc_packed(params, inp.ptsphy, mesh, sublanes=2,
-                                     interpret=True)
-    outs = {}
-    for order in ("cyclic", "grouped"):
-        p, _ = pack_inputs_raw(inp, sublanes=2, params=params,
-                               dtype=jnp.float32, column_order=order)
-        p = dist.shard_packed(p, mesh)
-        outs[order] = jax.block_until_ready(fn(p))
-
-    inv = group_inverse(klon, ngptot)
-    regrouped = jax.tree.map(lambda a: a[..., inv], outs["grouped"])
-    for name in outs["cyclic"]._fields:
-        a = np.asarray(getattr(outs["cyclic"], name))
-        b = np.asarray(getattr(regrouped, name))
-        np.testing.assert_array_equal(a, b, err_msg=name)
-
-
-def test_driver_chained_non_tile_multiple(monkeypatch):
-    """iterations>1 with ngptot NOT a multiple of the padded tile width
-    (sublanes*128): the chained loop's zero-scaled dependency must be
-    shape-agnostic (a full-array reshape of the ncol-sliced output against
-    the padded packed buffer raised TypeError at trace time — advisor r2).
+def test_driver_chained_non_tile_multiple(interpreted_driver):
+    """iterations>1 with ngptot NOT a multiple of the kernel's block: the
+    chained loop's zero-scaled dependency must leave the values unchanged.
     This is the timed path of every CLI run with --iterations > 1."""
-    from cloudsc_tpu.runtime.driver import CloudscDriver
-
-    monkeypatch.setenv("CLOUDSC_PALLAS_INTERPRET", "1")
     inp = load_input(INPUT_PATH, ngptot=100, expand=False)
     params = Params.from_input(inp)
-    d = CloudscDriver(params, inp.ptsphy, dtype=jnp.float32,
-                      backend="pallas", sublanes=1)
-    out2, _, _ = d.run(inp, iterations=2)
-
-    d1 = CloudscDriver(params, inp.ptsphy, dtype=jnp.float32,
-                       backend="pallas", sublanes=1)
-    out1, _, _ = d1.run(inp, iterations=1)
-    # the chained dependency is zero-scaled: iterating must not change values
-    for name in out1._fields:
-        np.testing.assert_array_equal(
-            np.asarray(getattr(out1, name)),
-            np.asarray(getattr(out2, name)), err_msg=name,
-        )
+    outs = []
+    for iterations in (2, 1):
+        d = interpreted_driver(params, inp.ptsphy, dtype=jnp.float32,
+                               backend="triton")
+        outs.append(d.run(inp, iterations=iterations)[0])
+    _assert_bitwise(outs[1], outs[0])

@@ -3,7 +3,7 @@
 The reference's expansion tiles the 100 snapshot columns cyclically to any
 NGPTOT (ref: expand_mod.F90), so per-column outputs at any size must equal the
 100-column outputs replicated — the same property its MPI tests rely on
-(ref: README.md:167-175). Column padding (the TPU NPROMA analogue) must not
+(ref: README.md:167-175). Column padding (the NPROMA analogue) must not
 change unpadded results.
 """
 
@@ -118,7 +118,7 @@ def test_dynamic_skips_inert_alternates_and_rain(input_100, params):
 
 
 def test_padding_invariance(input_100, params):
-    """Zero-padded tail columns must not perturb real columns."""
+    """Padded tail columns must not perturb real columns."""
     from cloudsc_tpu.runtime.driver import CloudscDriver
     import jax.numpy as jnp
 
@@ -135,7 +135,7 @@ def test_scan_unroll_bitwise_invariant(input_100, params, monkeypatch):
     """CLOUDSC_SCAN_UNROLL only restructures the level loop (lax.scan
     unroll); per-level ops and their order are unchanged, so outputs must be
     BITWISE identical — the guard that keeps the fp64 goldens valid for any
-    unroll setting (docs/PERFORMANCE.md 'Scan engine')."""
+    unroll setting (PERF.md)."""
     import jax.numpy as jnp
 
     base = _run(input_100, params, dtype=jnp.float32)
@@ -194,107 +194,3 @@ def test_s521_round_skip_is_inert(input_100, params):
                 f"{name}: s521 round skip not inert "
                 f"(max abs diff {np.abs(diff).max()})"
             )
-
-
-def test_scan_packed_closure_bitwise(monkeypatch, input_100, params,
-                                     golden_outputs_fp64):
-    """CLOUDSC_SCAN_PACKED=1 (stacked-closure scan, 5 dynamic-slices/level
-    instead of ~40) is a pure memory-layout change: stacking copies values
-    and the unpack is static row indexing with clamp semantics preserved.
-    The op SEQUENCE is identical; XLA's FMA-contraction choices inside the
-    rebuilt fusion clusters are not, so outputs agree to ~1 contraction ulp
-    (measured 5.5e-15 max rel on CPU fp64) rather than bitwise — the same
-    ambiguity class as the tur running sums (tests/test_fold_outputs.py)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from cloudsc_tpu.physics import cloudsc, make_inputs
-
-    fields = make_inputs(input_100, dtype=jnp.float64)
-    monkeypatch.setenv("CLOUDSC_SCAN_PACKED", "1")
-    out = jax.jit(
-        lambda f: cloudsc(f, params, input_100.ptsphy)
-    )(fields)
-    out = jax.block_until_ready(out)
-    for name in golden_outputs_fp64._fields:
-        a = np.asarray(getattr(golden_outputs_fp64, name))
-        b = np.asarray(getattr(out, name))
-        scale = np.abs(a).max() + 1e-300
-        assert np.abs(a - b).max() / scale < 1e-12, name
-
-
-def test_driver_scan_prepack_chained(monkeypatch, input_100, params):
-    """Driver wiring of the pre-packed scan (CLOUDSC_SCAN_PACKED=1, xla
-    backend): prepare() returns the stack dict, chained_fn threads the
-    all-zero `dep` buffer, and the step outputs match the plain scan at
-    fp32 working precision."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from cloudsc_tpu.runtime.driver import CloudscDriver
-
-    monkeypatch.setenv("CLOUDSC_SCAN_PACKED", "1")
-    d = CloudscDriver(params, input_100.ptsphy, dtype=jnp.float32,
-                      backend="xla")
-    assert d.scan_packed
-    fields, ncol = d.prepare(input_100)
-    assert "stack_s" in fields
-    dep = jax.block_until_ready(d.chained_fn(ncol, 2)(fields))
-    # pad columns (NaN by construction) turn NaN through 0.0*NaN; the real
-    # columns must stay exactly zero so values are never perturbed
-    np.testing.assert_array_equal(np.asarray(dep)[:ncol], 0.0)
-    out_p = d.fn_for(ncol)(fields)
-
-    monkeypatch.setenv("CLOUDSC_SCAN_PACKED", "0")
-    d2 = CloudscDriver(params, input_100.ptsphy, dtype=jnp.float32,
-                       backend="xla")
-    assert not d2.scan_packed
-    f2, _ = d2.prepare(input_100)
-    out_u = d2.fn_for(ncol)(f2)
-    for name in out_p._fields:
-        # pad columns (100 -> 128 NPROMA) hold zero pressures and are NaN
-        # by construction in both engines — compare the real columns only
-        a = np.asarray(getattr(out_p, name))[..., :ncol]
-        b = np.asarray(getattr(out_u, name))[..., :ncol]
-        s = np.abs(b).max() + 1e-30
-        assert np.abs(a - b).max() / s < 1e-5, name
-
-
-def test_scan_prepack_matches_in_step_stacking(monkeypatch, input_100,
-                                               params, golden_outputs_fp64):
-    """scan_pack() (pack ONCE outside the step — the chained-loop fix for
-    the in-step rebuild, bench/lab18_scanpack.log) must reproduce the
-    in-step CLOUDSC_SCAN_PACKED=1 results BITWISE: the stacks carry
-    identical values, cloudsc() runs the identical packed make_x path, and
-    the `dep` dependency buffer is all-zero (x + 0.0 on positive
-    pressures). Also re-checks against the fp64 goldens at the packed-
-    closure tolerance."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from cloudsc_tpu.physics import cloudsc, make_inputs
-    from cloudsc_tpu.physics.cloudsc import scan_pack
-
-    fields = make_inputs(input_100, dtype=jnp.float64)
-    monkeypatch.setenv("CLOUDSC_SCAN_PACKED", "1")
-    out_instep = jax.block_until_ready(jax.jit(
-        lambda f: cloudsc(f, params, input_100.ptsphy)
-    )(fields))
-    monkeypatch.delenv("CLOUDSC_SCAN_PACKED")
-    packed = jax.jit(
-        lambda f: scan_pack(f, params, input_100.ptsphy)
-    )(fields)
-    assert "stack_s" in packed
-    out_pre = jax.block_until_ready(jax.jit(
-        lambda p: cloudsc(p, params, input_100.ptsphy)
-    )(packed))
-    for name in out_pre._fields:
-        a = np.asarray(getattr(out_instep, name))
-        b = np.asarray(getattr(out_pre, name))
-        np.testing.assert_array_equal(a, b, err_msg=name)
-        g = np.asarray(getattr(golden_outputs_fp64, name))
-        scale = np.abs(g).max() + 1e-300
-        assert np.abs(g - b).max() / scale < 1e-12, name

@@ -4,9 +4,8 @@ cloudsc_c.cu:53 — this framework must not).
 
 Truncating the snapshot's BOTTOM levels yields a physically consistent
 shallower atmosphere (monotone pressures, surface = the new last half
-level); both engines must run it, agree with each other, and stay finite.
-The kernel's level-blocking factor adapts automatically (largest divisor of
-nlev+1, kernels/pallas_cloudsc._lps_for)."""
+level); both engines must run it, agree with each other, and stay finite (the
+kernel's level loop takes its bounds from the input's shape)."""
 
 import dataclasses
 
@@ -31,17 +30,14 @@ def _truncated(inp, nlev):
     return dataclasses.replace(inp, fields=fields, klev=nlev)
 
 
-# 91: lps falls back to 2 (92 = 2*2*23); 61: lps 2 (62 = 2*31);
-# 68: lps 3 (69 = 3*23) — distinct blockings of the sequential grid
 @pytest.mark.parametrize("nlev", [61, 68, 91])
 def test_engines_agree_at_any_level_count(input_100, params, nlev):
-    from cloudsc_tpu.kernels import cloudsc_pallas
+    from cloudsc_tpu.kernels import cloudsc_triton
 
     inp = _truncated(input_100, nlev)
     fields = make_inputs(inp, dtype=jnp.float32)
     out_s = jax.jit(lambda f: cloudsc(f, params, inp.ptsphy))(fields)
-    out_p = cloudsc_pallas(fields, params, inp.ptsphy, sublanes=4,
-                           packed=True, interpret=True)
+    out_p = cloudsc_triton(fields, params, inp.ptsphy, interpret=True)
     jax.block_until_ready((out_s, out_p))
     assert out_s.pfplsl.shape == (nlev + 1, 100)
     for name in ("tendency_loc_t", "tendency_loc_q", "pcovptot",
@@ -50,7 +46,7 @@ def test_engines_agree_at_any_level_count(input_100, params, nlev):
         b = np.asarray(getattr(out_p, name), dtype=np.float64)
         assert np.isfinite(a).all() and np.isfinite(b).all(), name
         maxrel = np.abs(a - b).max() / (np.abs(a).max() + 1e-30)
-        assert maxrel < 2e-5, f"{name} @ L{nlev}: pallas vs scan {maxrel}"
+        assert maxrel < 2e-5, f"{name} @ L{nlev}: kernel vs scan {maxrel}"
 
 
 # Note: a truncated run is NOT expected to reproduce the full-depth run's

@@ -1,7 +1,7 @@
 """Multi-device sharding equality on a virtual 8-device CPU mesh.
 
 Sharding the embarrassingly parallel column axis must be bitwise identical to
-single-device execution — the TPU analogue of the reference's MPI-vs-serial
+single-device execution — this program's analogue of the reference's MPI-vs-serial
 bitwise comparability (ref: README.md:167-175). Also exercises the distributed
 validation-norm reductions (the CLOUDSC_MPI_REDUCE_* analogue).
 """
@@ -59,105 +59,43 @@ def test_distributed_error_norms(mesh):
     np.testing.assert_allclose(got[4], np.abs(ref).sum(), rtol=1e-9)
 
 
-def test_sharded_packed_pallas_matches_scan():
-    """The packed Pallas fast path over the mesh via shard_map (interpret
-    mode on the virtual CPU devices) must match the single-device scan."""
-    import jax
+def test_driver_mesh_kernel_bitwise_vs_single(mesh, monkeypatch):
+    """The fused kernel on the mesh — one kernel per device's shard under
+    shard_map, grouped column layout, outputs gathered back to canonical
+    order — equals the one-device run bitwise per column, and the sharded
+    validation norms equal the one-device norms (interpret mode on the
+    virtual CPU devices)."""
+    import functools
+
     import jax.numpy as jnp
-    import numpy as np
 
-    if len(jax.devices()) < 8:
-        import pytest
-
-        pytest.skip("needs the virtual multi-device CPU platform")
-
-    from conftest import REFERENCE_DATA
     from cloudsc_tpu.data import load_input
+    from cloudsc_tpu import kernels
+    from cloudsc_tpu.kernels.triton_cloudsc import cloudsc_triton
     from cloudsc_tpu.params import Params
-    from cloudsc_tpu.physics import cloudsc, make_inputs
-    from cloudsc_tpu.kernels.pallas_cloudsc import pack_inputs
-    from cloudsc_tpu.runtime import dist
-
-    ncol = 8 * 2 * 128  # 8 devices x 2 sublanes x 128 lanes
-    inp = load_input(REFERENCE_DATA, ngptot=ncol)
-    params = Params.from_input(inp)
-    fields = make_inputs(inp, dtype=jnp.float32)
-    ref = jax.jit(lambda f: cloudsc(f, params, inp.ptsphy))(fields)
-
-    mesh = dist.column_mesh()
-    packed, _ = pack_inputs(fields, 2, params)
-    packed = dist.shard_packed(packed, mesh)
-    fn = dist.sharded_cloudsc_packed(params, inp.ptsphy, mesh, sublanes=2,
-                                     interpret=True)
-    out = fn(packed)
-    for name in ref._fields:
-        a = np.asarray(getattr(ref, name), dtype=np.float64)
-        b = np.asarray(getattr(out, name), dtype=np.float64)
-        err = np.abs(a - b).max() / max(np.abs(a).max(), 1e-30)
-        assert err < 1e-5, f"{name}: {err:.2e}"
-
-
-def test_sharded_tile_major_foldo_bitwise_vs_single():
-    """Tile-major + folded outputs on the mesh: every device relayouts its
-    own shard (dist.tile_major_packed), and the result must be BITWISE equal
-    to the single-device tile-major run — the layouts are permutations of
-    the same values, so sharding must not change a bit (the reference's
-    packed storage is orthogonal to MPI, ref: cloudsc_field_state_mod.F90:29-59)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    if len(jax.devices()) < 8:
-        import pytest
-
-        pytest.skip("needs the virtual multi-device CPU platform")
-
+    from cloudsc_tpu.runtime import driver as drv
     from conftest import REFERENCE_DATA
-    from cloudsc_tpu.data import load_input
-    from cloudsc_tpu.params import Params
-    from cloudsc_tpu.kernels.pallas_cloudsc import (
-        cloudsc_pallas, pack_inputs_raw, pack_to_tile_major,
-    )
-    from cloudsc_tpu.runtime import dist
 
-    sb, ndev = 2, 8
-    ncol = ndev * sb * 128  # whole tiles per device (driver gran contract)
-    inp = load_input(REFERENCE_DATA, ngptot=ncol)
+    interpreted = functools.partial(cloudsc_triton, interpret=True)
+    monkeypatch.setattr(kernels, "step_fn", lambda backend: interpreted)
+
+    inp = load_input(REFERENCE_DATA, ngptot=8 * 128, expand=False)
     params = Params.from_input(inp)
-    packed, _ = pack_inputs_raw(inp, sb * ndev, params, dtype=jnp.float32,
-                                fold=True)
+    outs = {}
+    for use_mesh in (False, True):
+        d = drv.CloudscDriver(params, inp.ptsphy, dtype=jnp.float32,
+                              backend="triton", use_mesh=use_mesh)
+        assert d.grouped
+        outs[use_mesh], _, _ = d.run(inp, iterations=1, fetch_outputs=False)
+    for name in outs[False]._fields:
+        a = np.asarray(getattr(outs[False], name))
+        b = np.asarray(getattr(outs[True], name))
+        np.testing.assert_array_equal(a, b, err_msg=name)
 
-    for foldo in (True, False):
-        # single device: global tile-major relayout
-        tm = jax.jit(lambda p: pack_to_tile_major(p, sb))(packed)
-        single = cloudsc_pallas(None, params, inp.ptsphy, sublanes=sb,
-                                packed=tm, interpret=True,
-                                fold_outputs=foldo)
-
-        # mesh: shard the folded pack, relayout per shard, run via shard_map
-        mesh = dist.column_mesh()
-        sharded = dist.shard_packed(packed, mesh)
-        sharded = dist.tile_major_packed(sharded, mesh, sb)
-        assert sharded["pack"].ndim == 5
-        fn = dist.sharded_cloudsc_packed(params, inp.ptsphy, mesh,
-                                         sublanes=sb, interpret=True,
-                                         fold_outputs=foldo)
-        out = fn(sharded)
-
-        for name in single._fields:
-            a = np.asarray(getattr(single, name))
-            b = np.asarray(getattr(out, name))
-            if name in ("pfsqltur", "pfsqitur"):
-                # the two tur running sums carry the documented
-                # 1-partial-sum-ulp FMA-contraction ambiguity (XLA contracts
-                # the `acc + a*b*c` mul+add differently inside shard_map
-                # than in plain jit — both for the foldo synthesis and for
-                # the interpret-mode in-kernel accumulation) — same
-                # tolerance as tests/test_fold_outputs.py
-                np.testing.assert_allclose(
-                    a, b, atol=1e-12, err_msg=f"{name} (foldo={foldo})"
-                )
-            else:
-                np.testing.assert_array_equal(
-                    a, b, err_msg=f"{name} (foldo={foldo})"
-                )
+    norms = dist.sharded_error_norms(mesh)
+    one = np.asarray(dist.error_norms(outs[False].tendency_loc_t,
+                                      outs[False].tendency_loc_t * 0.5)
+                     ["errsum"])
+    got = np.asarray(norms(outs[True].tendency_loc_t,
+                           outs[True].tendency_loc_t * 0.5))
+    np.testing.assert_allclose(got[3], one, rtol=1e-6)

@@ -118,16 +118,15 @@ def test_two_rank_table_matches_single(two_rank_run, capsys, input_100,
 
 
 @pytest.fixture(scope="module")
-def two_rank_packed_run(tmp_path_factory):
-    """2 real processes x the packed shard_map Pallas path (interpret mode):
-    the production pod configuration (multi-process x packed), previously
-    covered only single-process."""
-    outdir = tmp_path_factory.mktemp("mp_packed")
+def two_rank_kernel_run(tmp_path_factory):
+    """2 real processes x the fused kernel under shard_map (interpret
+    mode): the multi-host configuration of the GPU engine."""
+    outdir = tmp_path_factory.mktemp("mp_kernel")
     port = _free_port()
     procs = [
         subprocess.Popen(
             [sys.executable, str(WORKER), str(rank), "2", str(port),
-             str(outdir), "512", "packed"],
+             str(outdir), "512", "kernel"],
             cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True,
         )
@@ -148,31 +147,28 @@ def two_rank_packed_run(tmp_path_factory):
     return outdir
 
 
-def test_two_rank_packed_bitwise_equals_single(two_rank_packed_run,
-                                               monkeypatch):
-    """Each rank's packed shard_map output shard == the matching column
-    slice of a single-process packed run, bitwise (512 columns over 2
-    ranks: both shards hold real columns)."""
+def test_two_rank_kernel_bitwise_equals_single(two_rank_kernel_run):
+    """Each rank's kernel output shard == the matching column slice of a
+    single-process kernel run on the cyclic layout (the multi-process
+    regime), bitwise (512 columns over 2 ranks: both shards hold real
+    columns)."""
+    import jax
     import jax.numpy as jnp
 
     from cloudsc_tpu.data import default_input_path, load_input
+    from cloudsc_tpu.kernels.triton_cloudsc import cloudsc_triton
     from cloudsc_tpu.params import Params
-    from cloudsc_tpu.runtime.driver import CloudscDriver
+    from cloudsc_tpu.physics import make_inputs
 
-    monkeypatch.setenv("CLOUDSC_PALLAS_INTERPRET", "1")
-    # cyclic layout to match the multi-process regime (grouping self-disables
-    # when process_count > 1)
-    monkeypatch.setenv("CLOUDSC_GROUP_COLUMNS", "0")
-    inp = load_input(default_input_path(), ngptot=512, expand=False)
+    inp = load_input(default_input_path(), ngptot=512)
     params = Params.from_input(inp)
-    driver = CloudscDriver(params, inp.ptsphy, dtype=jnp.float32,
-                           nproma=128, backend="pallas", sublanes=1)
-    assert driver.packed and not driver.grouped
-    single, _, _ = driver.run(inp, iterations=1)
+    fields = make_inputs(inp, dtype=jnp.float32)
+    single = jax.jit(lambda f: cloudsc_triton(f, params, inp.ptsphy,
+                                              interpret=True))(fields)
 
     seen_cols = 0
     for rank in range(2):
-        z = np.load(two_rank_packed_run / f"packed_out_{rank}.npz")
+        z = np.load(two_rank_kernel_run / f"kernel_out_{rank}.npz")
         for name in ("tendency_loc_t", "pfplsl", "plude",
                      "prainfrac_toprfz"):
             got = z[name]

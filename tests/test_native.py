@@ -66,93 +66,3 @@ def test_field_stats_matches_numpy():
     assert maxerr == diff.max()
     np.testing.assert_allclose(errsum, diff.sum(), rtol=1e-12)
     np.testing.assert_allclose(refsum, np.abs(ref).sum(), rtol=1e-12)
-
-
-def test_pack_inputs_raw_matches_numpy_pipeline():
-    """The fused native expand+cast+pack must be bitwise-identical to the
-    numpy pipeline (expand at load -> make_inputs fp32 -> pack_inputs), at a
-    tile-exact and a padded column count."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from cloudsc_tpu.data import load_input
-    from cloudsc_tpu.kernels.pallas_cloudsc import pack_inputs, pack_inputs_raw
-    from cloudsc_tpu.params import Params
-    from cloudsc_tpu.physics import make_inputs
-    from conftest import REFERENCE_DATA
-
-    for ng in (4096, 300):
-        raw = load_input(REFERENCE_DATA, ngptot=ng, expand=False)
-        exp = load_input(REFERENCE_DATA, ngptot=ng)
-        params = Params.from_input(raw)
-        # pin the UNFOLDED layout: this test is the native-vs-numpy bitwise
-        # check for the legacy pack (pack_inputs deliberately defaults
-        # unfolded regardless of CLOUDSC_FOLD_INPUTS; the folded native pack
-        # has its own mirror test in test_fold_inputs.py)
-        p_nat, ncol = pack_inputs_raw(raw, 32, params, fold=False)
-        fields = make_inputs(exp, dtype=jnp.float32, host=True)
-        p_ref, ncol2 = pack_inputs(fields, 32, params)
-        assert ncol == ncol2 == ng
-        for k in p_ref:
-            a, b = np.asarray(p_nat[k]), np.asarray(p_ref[k])
-            assert a.shape == b.shape, (k, a.shape, b.shape)
-            np.testing.assert_array_equal(a, b, err_msg=f"{k} ngptot={ng}")
-
-
-def test_pack_inputs_raw_grouped_matches_numpy_fallback(monkeypatch):
-    """The grouped native pack and the numpy fallback (make_inputs with
-    column_order='grouped' -> pack_inputs) must agree bitwise — the driver
-    relies on the requested order being honored on both paths."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    import cloudsc_tpu.native as native
-    from cloudsc_tpu.data import load_input
-    from cloudsc_tpu.kernels.pallas_cloudsc import pack_inputs_raw
-    from cloudsc_tpu.params import Params
-    from conftest import REFERENCE_DATA
-
-    for ng in (4096, 300):
-        raw = load_input(REFERENCE_DATA, ngptot=ng, expand=False)
-        params = Params.from_input(raw)
-        p_nat, _ = pack_inputs_raw(raw, 32, params, dtype=jnp.float32,
-                                   column_order="grouped")
-        with monkeypatch.context() as m:
-            m.setattr(native, "pack_expand_native", lambda *a, **k: None)
-            p_fb, _ = pack_inputs_raw(raw, 32, params, dtype=jnp.float32,
-                                      column_order="grouped")
-        for k in p_fb:
-            np.testing.assert_array_equal(
-                np.asarray(p_nat[k]), np.asarray(p_fb[k]),
-                err_msg=f"{k} ngptot={ng}",
-            )
-
-
-def test_pack_inputs_raw_sorted_matches_numpy_fallback(monkeypatch):
-    """Same agreement with a source-column permutation (activity sorting)."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    import cloudsc_tpu.native as native
-    from cloudsc_tpu.data import load_input
-    from cloudsc_tpu.data.expand import activity_perm
-    from cloudsc_tpu.kernels.pallas_cloudsc import pack_inputs_raw
-    from cloudsc_tpu.params import Params
-    from conftest import REFERENCE_DATA
-
-    ng = 4096
-    raw = load_input(REFERENCE_DATA, ngptot=ng, expand=False)
-    params = Params.from_input(raw)
-    perm = activity_perm(raw.fields["PCLV"], raw.fields["TENDENCY_TMP_CLD"],
-                         raw.ptsphy, params.ydecldp.rlmin)
-    assert sorted(perm) == list(range(len(perm)))
-    p_nat, _ = pack_inputs_raw(raw, 32, params, dtype=jnp.float32,
-                               column_order="grouped", column_perm=perm)
-    with monkeypatch.context() as m:
-        m.setattr(native, "pack_expand_native", lambda *a, **k: None)
-        p_fb, _ = pack_inputs_raw(raw, 32, params, dtype=jnp.float32,
-                                  column_order="grouped", column_perm=perm)
-    for k in p_fb:
-        np.testing.assert_array_equal(
-            np.asarray(p_nat[k]), np.asarray(p_fb[k]), err_msg=k,
-        )

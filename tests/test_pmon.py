@@ -24,10 +24,10 @@ def test_enabled_reads_or_none(monkeypatch):
 
 
 def test_driver_backend_validation():
-    from cloudsc_tpu.runtime.driver import CloudscDriver
+    from cloudsc_tpu.runtime.driver import resolve_backend
 
     with pytest.raises(ValueError, match="unknown backend"):
-        CloudscDriver.__new__(CloudscDriver)._resolve_backend("cuda")
+        resolve_backend("cuda")
 
 
 def test_driver_samples_energy(monkeypatch, tmp_path, input_100, params):

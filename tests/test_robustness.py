@@ -99,18 +99,17 @@ def test_scan_engine_finite_and_physical(input_100, params, seed):
     assert np.abs(np.asarray(out.tendency_loc_t)).max() < 0.1
 
 
-def test_pallas_agrees_on_perturbed_state(input_100, params):
+def test_kernel_agrees_on_perturbed_state(input_100, params):
     """The fused kernel (interpret mode, fp32) tracks the scan engine on a
     randomized state that fires the rain/melt/supersat branches the snapshot
     leaves cold — the cross-engine guard off the golden trajectory."""
-    from cloudsc_tpu.kernels import cloudsc_pallas
+    from cloudsc_tpu.kernels import cloudsc_triton
 
     fields = _perturbed_fields(input_100, jnp.float32, seed=3)
     out_s = jax.jit(
         lambda f: cloudsc(f, params, input_100.ptsphy)
     )(fields)
-    out_p = cloudsc_pallas(fields, params, input_100.ptsphy, sublanes=4,
-                           interpret=True)
+    out_p = cloudsc_triton(fields, params, input_100.ptsphy, interpret=True)
     jax.block_until_ready((out_s, out_p))
     for name in ("tendency_loc_t", "tendency_loc_q", "pcovptot",
                  "pfplsl", "pfplsn"):
@@ -118,7 +117,7 @@ def test_pallas_agrees_on_perturbed_state(input_100, params):
         b = np.asarray(getattr(out_p, name), dtype=np.float64)
         scale = np.abs(a).max() + 1e-30
         maxrel = np.abs(a - b).max() / scale
-        assert maxrel < 2e-5, f"{name}: pallas vs scan maxrel {maxrel}"
+        assert maxrel < 2e-5, f"{name}: kernel vs scan maxrel {maxrel}"
 
 
 def test_validation_table_survives_nonfinite():

@@ -4,7 +4,7 @@ No golden data exists for the non-default configurations (the reference
 hardcodes 2/2/1/1), so these tests pin:
   - finiteness and physical sanity of each alternate,
   - that alternates actually change the answer (not silently ignored),
-  - scan-vs-Pallas agreement for each configuration (the cross-engine
+  - scan-vs-kernel agreement for each configuration (the cross-engine
     consistency test the reference gets from its 14 variants).
 """
 
@@ -18,7 +18,7 @@ from cloudsc_tpu.data import load_input
 from cloudsc_tpu.params import Params
 from cloudsc_tpu.physics import cloudsc, make_inputs
 from cloudsc_tpu.physics.scheme import SchemeConfig
-from cloudsc_tpu.kernels import cloudsc_pallas
+from cloudsc_tpu.kernels import cloudsc_triton
 
 from conftest import REFERENCE_DATA as INPUT_PATH
 
@@ -66,17 +66,17 @@ def test_alternate_finite_and_distinct(setup, cfg):
 @pytest.mark.parametrize("cfg", ALTERNATES,
                          ids=lambda c: f"w{c.iwarmrain}r{c.ievaprain}"
                                        f"s{c.ievapsnow}d{c.idepice}")
-def test_alternate_pallas_matches_scan(setup, cfg):
+def test_alternate_kernel_matches_scan(setup, cfg):
     import jax.numpy as jnp
 
     inp, params, _, _ = setup
-    inp512 = load_input(INPUT_PATH, ngptot=512)
+    inp512 = load_input(INPUT_PATH, ngptot=256)
     fields = make_inputs(inp512, dtype=jnp.float32)
     ref = jax.jit(
         lambda f: cloudsc(f, params, inp512.ptsphy, config=cfg)
     )(fields)
-    out = cloudsc_pallas(fields, params, inp512.ptsphy, sublanes=4,
-                         interpret=True, config=cfg)
+    out = cloudsc_triton(fields, params, inp512.ptsphy, config=cfg,
+                         interpret=True)
     for name in ref._fields:
         a = np.asarray(getattr(ref, name), dtype=np.float64)
         b = np.asarray(getattr(out, name), dtype=np.float64)
@@ -84,9 +84,9 @@ def test_alternate_pallas_matches_scan(setup, cfg):
         assert err < 1e-5, f"{name}: {err:.2e} under {cfg}"
 
 
-def test_aerosol_couplings_pallas_matches_scan(setup):
+def test_aerosol_couplings_kernel_matches_scan(setup):
     """Synthetically enable the aerosol couplings (off in the snapshot) and
-    check scan-vs-Pallas agreement — exercises the extra streamed fields."""
+    check scan-vs-kernel agreement — exercises the extra input rows."""
     import copy
 
     import jax.numpy as jnp
@@ -99,7 +99,7 @@ def test_aerosol_couplings_pallas_matches_scan(setup):
     p2.ydecldp.laerliqcoll = True
     cfg = SchemeConfig(iwarmrain=1)  # the aerosol CCN branches live here
 
-    inp512 = load_input(INPUT_PATH, ngptot=512)
+    inp512 = load_input(INPUT_PATH, ngptot=256)
     fields = dict(make_inputs(inp512, dtype=jnp.float32))
     # the snapshot carries zero aerosol fields (the couplings are off in the
     # reference config) — substitute physically plausible values
@@ -112,8 +112,8 @@ def test_aerosol_couplings_pallas_matches_scan(setup):
     ref = jax.jit(lambda f: cloudsc(f, p2, inp512.ptsphy, config=cfg))(fields)
     for name, arr in ref._asdict().items():
         assert np.isfinite(np.asarray(arr)).all(), name
-    out = cloudsc_pallas(fields, p2, inp512.ptsphy, sublanes=4,
-                         interpret=True, config=cfg)
+    out = cloudsc_triton(fields, p2, inp512.ptsphy, config=cfg,
+                         interpret=True)
     for name in ref._fields:
         a = np.asarray(getattr(ref, name), dtype=np.float64)
         b = np.asarray(getattr(out, name), dtype=np.float64)
@@ -169,18 +169,18 @@ def test_rain_evap_schemes_diverge_on_raining_input(setup):
     )
 
 
-def test_rain_evap_sundqvist_pallas_matches_scan(setup):
+def test_rain_evap_sundqvist_kernel_matches_scan(setup):
     """Cross-engine agreement for the Sundqvist branch under real rain (the
     snapshot never exercises it in either engine)."""
     import jax.numpy as jnp
 
     inp, params, _, _ = setup
-    inp512 = load_input(INPUT_PATH, ngptot=512)
+    inp512 = load_input(INPUT_PATH, ngptot=256)
     fields = _raining_fields(inp512, jnp.float32)
     cfg = SchemeConfig(ievaprain=1)
     ref = jax.jit(lambda f: cloudsc(f, params, inp512.ptsphy, config=cfg))(fields)
-    out = cloudsc_pallas(fields, params, inp512.ptsphy, sublanes=4,
-                         interpret=True, config=cfg)
+    out = cloudsc_triton(fields, params, inp512.ptsphy, config=cfg,
+                         interpret=True)
     for name in ref._fields:
         a = np.asarray(getattr(ref, name), dtype=np.float64)
         b = np.asarray(getattr(out, name), dtype=np.float64)
